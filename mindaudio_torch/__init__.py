@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "check_generator"]
 
 
 def resolve_device(device="cuda"):
@@ -30,3 +30,17 @@ def resolve_device(device="cuda"):
             "the plain PyTorch versions"
         )
     return device
+
+
+def check_generator(generator, device, name):
+    """Raise unless ``generator`` lives on ``device``. Random numbers drawn on
+    another device would be copied through the host inside every train step,
+    silently. ``torch.Generator(device="cuda")`` reports no index, so an index
+    counts only where both sides name one."""
+    if generator is None:
+        raise ValueError(f"{name}: needs an explicit torch.Generator")
+    have, want = generator.device, torch.device(device)
+    if have.type != want.type or (
+            have.index is not None and want.index is not None and have.index != want.index):
+        raise ValueError(f"{name}: the generator lives on {have} but the data on {want}; "
+                         "make it with torch.Generator(device=...)")

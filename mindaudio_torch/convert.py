@@ -11,6 +11,9 @@ change layout as PyTorch wants it:
 - depthwise Conv1d ``kernel`` ``(k, 1, C)`` → ``(C, 1, k)``;
 - LayerNorm ``scale`` → ``weight``; Embed ``embedding`` → ``weight``;
 - ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across.
+
+The AdamW moments have the parameters' tree, so :func:`convert_adamw_state`
+carries an optax state across by the same rules.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["module_name", "convert_params"]
+__all__ = ["module_name", "convert_params", "convert_adamw_state"]
 
 _RENAME = {"Dense_0": "w_1", "Dense_1": "w_2", "Conv_0": "conv1", "Conv_1": "conv2"}
 _KERNEL_LAYOUT = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
@@ -61,3 +64,18 @@ def convert_params(params):
         key = ".".join(filter(None, (module_name(mod), leaf_name)))
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def convert_adamw_state(opt_state):
+    """State of ``optax.adamw`` (its chain's tuple, or the ``ScaleByAdamState``
+    itself, leaves readable by numpy) → ``{"count", "mu", "nu"}`` for
+    ``train.optim.AdamW.load_state_dict``: the moments keyed and laid out as
+    :func:`convert_params` does the parameters, in float32 (the optimizer
+    casts the first moment back to its ``mu_dtype``)."""
+    states = opt_state if isinstance(opt_state, (tuple, list)) and not hasattr(
+        opt_state, "mu") else [opt_state]
+    adam = next((s for s in states if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("convert_adamw_state: no state with mu and nu in opt_state")
+    return {"count": torch.tensor(int(adam.count), dtype=torch.int32),
+            "mu": convert_params(adam.mu), "nu": convert_params(adam.nu)}

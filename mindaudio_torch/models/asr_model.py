@@ -1,10 +1,12 @@
-"""Hybrid CTC/attention ASR model, inference side (port of
+"""Hybrid CTC/attention ASR model (port of
 ``mindaudio_tpu.models.asr_model.ASRModel``).
 
-A Conformer encoder, a Transformer decoder and a CTC head. This slice ports
-the pieces the decode drivers use (``encode``, ``ctc_log_probs``,
-``decode_step``, ``decoder_logits``); the hybrid training loss comes with
-the training slice.
+A Conformer encoder, a Transformer decoder with label-smoothing loss and a
+CTC head, combined as ``loss = w * loss_ctc + (1 - w) * loss_att`` in
+``forward``. ``encode``, ``ctc_log_probs``, ``decode_step`` and
+``decoder_logits`` are the pieces that decoding calls. The ``remat``,
+``int8_ffn``, MoE, pipeline and sequence-parallel knobs of the JAX module are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import resolve_device
+from ..loss.ctc_loss import ctc_loss
+from ..loss.label_smoothing_loss import IGNORE_ID, label_smoothing_loss
 from .conformer import ConformerEncoder, TransformerDecoder
+from .layers import FastDropout
 
 __all__ = ["ASRModel"]
 
@@ -27,15 +32,24 @@ class ASRModel(nn.Module):
     Parameters are created float32 on ``device`` (CUDA unless the caller
     asks for the CPU). Their values come from :meth:`reset_parameters` or
     from a converted JAX checkpoint (``mindaudio_torch.convert``).
+
+    ``forward`` takes a batch dict and returns ``(loss, metrics)``. Training
+    is ``model.train()`` (the JAX ``deterministic=False``) after
+    :meth:`set_dropout_generator`. ``ctc_impl`` is ``"auto"``, ``"kernel"``
+    or ``"scan"`` (``loss/ctc_loss.py``).
     """
 
     def __init__(self, vocab_size, input_dim=80, d_model=256, head_num=4,
                  ffn_dim=2048, num_encoder_layers=12, num_decoder_layers=6,
                  dropout_rate=0.1, attention_dropout_rate=0.0, kernel_size=15,
+                 ctc_weight=0.3, ctc_impl="auto", lsm_weight=0.1,
                  use_dynamic_chunk=False, static_chunk_size=0, causal_conv=False,
                  cmvn_mean=None, cmvn_istd=None, device="cuda"):
         super().__init__()
         self.vocab_size = vocab_size
+        self.ctc_weight = ctc_weight
+        self.ctc_impl = ctc_impl
+        self.lsm_weight = lsm_weight
         self.encoder = ConformerEncoder(
             input_dim=input_dim, d_model=d_model, head_num=head_num,
             ffn_dim=ffn_dim, num_layers=num_encoder_layers,
@@ -75,6 +89,47 @@ class ASRModel(nn.Module):
                 bound = math.sqrt(6.0 / sum(p.shape))
                 p.uniform_(-bound, bound, generator=generator)
         return self
+
+    def set_dropout_generator(self, generator):
+        """Make every dropout of the model draw from ``generator`` (on the
+        parameters' device), so that training needs no global RNG state."""
+        for module in self.modules():
+            if isinstance(module, FastDropout):
+                module.generator = generator
+        return self
+
+    def forward(self, batch, chunk_generator=None):
+        """Hybrid training loss: ``(loss, metrics)``.
+
+        ``batch`` keys: ``feats (B, T, F)`` float32, ``feat_lens (B,)``,
+        ``ys_in (B, L+1)`` decoder input with sos, ``ys_out (B, L+1)`` decoder
+        target with eos and ``IGNORE_ID`` pads, ``ys_lens (B,)`` = label
+        length + 1, ``labels (B, L)`` CTC targets (no sos/eos), ``label_lens
+        (B,)``. Both losses are computed in float32 whatever the compute
+        dtype. Without a ``chunk_generator`` a dynamic-chunk model runs with
+        full context.
+        """
+        enc_out, enc_mask = self.encoder(
+            batch["feats"], batch["feat_lens"],
+            decoding_chunk_size=0 if chunk_generator is not None else -1,
+            chunk_generator=chunk_generator)
+        enc_lens = enc_mask[:, 0, :].sum(-1)
+
+        zero = torch.zeros((), dtype=torch.float32, device=enc_out.device)
+        loss_att = acc_att = loss_ctc = zero
+        if self.ctc_weight < 1.0:
+            dec_logits = self.decoder(enc_out, enc_mask, batch["ys_in"], batch["ys_lens"])
+            ys_out = batch["ys_out"]
+            loss_att = label_smoothing_loss(dec_logits, ys_out, smoothing=self.lsm_weight)
+            valid = ys_out != IGNORE_ID
+            hits = (dec_logits.argmax(-1) == ys_out) & valid
+            acc_att = hits.sum() / valid.sum().clamp_min(1)
+        if self.ctc_weight > 0.0:
+            loss_ctc = ctc_loss(self.ctc_proj(enc_out), enc_lens, batch["labels"],
+                                batch["label_lens"], impl=self.ctc_impl)
+
+        loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
+        return loss, {"loss_att": loss_att, "loss_ctc": loss_ctc, "acc_att": acc_att}
 
     def encode(self, feats, feat_lens, decoding_chunk_size=-1,
                num_decoding_left_chunks=-1):

@@ -1,7 +1,8 @@
 """Conformer encoder + Transformer decoder (port of ``mindaudio_tpu.models.conformer``).
 
-The dense, full-context path: no MoE, sequence parallelism, pipeline or
-int8 FFN training knobs, and no streaming ``forward_chunk`` yet.
+The dense path, for decoding and training: no MoE, sequence parallelism,
+pipeline, rematerialization or int8 FFN training knobs, and no streaming
+``forward_chunk`` yet.
 """
 
 from __future__ import annotations
@@ -68,9 +69,11 @@ class ConformerEncoder(nn.Module):
     def __init__(self, input_dim=80, d_model=256, head_num=4, ffn_dim=2048,
                  num_layers=12, dropout_rate=0.1, attention_dropout_rate=0.0,
                  kernel_size=15, use_dynamic_chunk=False, static_chunk_size=0,
-                 causal_conv=False, cmvn_mean=None, cmvn_istd=None):
+                 causal_conv=False, cmvn_mean=None, cmvn_istd=None,
+                 use_dynamic_left_chunk=False):
         super().__init__()
         self.use_dynamic_chunk = use_dynamic_chunk
+        self.use_dynamic_left_chunk = use_dynamic_left_chunk
         self.static_chunk_size = static_chunk_size
         self.global_cmvn = (GlobalCMVN(cmvn_mean, cmvn_istd)
                             if cmvn_mean is not None else None)
@@ -82,7 +85,10 @@ class ConformerEncoder(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, xs, xs_lens, decoding_chunk_size=0, num_decoding_left_chunks=-1):
+    def forward(self, xs, xs_lens, decoding_chunk_size=0, num_decoding_left_chunks=-1,
+                chunk_generator=None):
+        """``chunk_generator`` feeds the training-time chunk sampling of a
+        ``use_dynamic_chunk`` encoder called with ``decoding_chunk_size=0``."""
         if self.global_cmvn is not None:
             xs = self.global_cmvn(xs)
         # compute dtype = parameter dtype (the subsampling convs are never
@@ -93,8 +99,9 @@ class ConformerEncoder(nn.Module):
         sub_lens = ((xs_lens - 1) // 2 - 1) // 2
         masks = make_non_pad_mask(sub_lens, t_sub)[:, None, :]  # (B, 1, T')
         chunk_masks = add_optional_chunk_mask(
-            masks, self.use_dynamic_chunk, decoding_chunk_size,
-            self.static_chunk_size, num_decoding_left_chunks)
+            masks, self.use_dynamic_chunk, self.use_dynamic_left_chunk,
+            decoding_chunk_size, self.static_chunk_size, num_decoding_left_chunks,
+            generator=chunk_generator)
         mask_pad = masks[:, 0, :]
         for layer in self.layers:
             xs = layer(xs, chunk_masks, pos_emb, mask_pad)

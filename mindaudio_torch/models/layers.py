@@ -19,6 +19,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import check_generator
+
 __all__ = [
     "MASK_VALUE",
     "LN_EPS",
@@ -52,8 +54,9 @@ class FastDropout(nn.Module):
     Mirrors the JAX ``FastDropout``: a position is kept when a uniform byte
     is ``>= round(256 * rate)``, so ``P(keep) = (256 - round(256 r)) / 256``
     and kept values are rescaled by exactly that. The identity at eval. In
-    training the bytes come from ``generator``, which must be given (the
-    TPU's random bits cannot be reproduced, only their distribution).
+    training the bytes come from ``generator``, which must be given and must
+    live on the input's device (the TPU's random bits cannot be reproduced,
+    only their distribution).
     """
 
     def __init__(self, rate, generator=None):
@@ -69,11 +72,12 @@ class FastDropout(nn.Module):
             return torch.zeros_like(x)
         if self.generator is None:
             raise RuntimeError("FastDropout in training needs an explicit generator")
+        check_generator(self.generator, x.device, "FastDropout")
         bits = torch.randint(0, 256, x.shape, generator=self.generator,
-                             device=self.generator.device, dtype=torch.uint8)
-        keep = bits.to(x.device) >= thresh
+                             device=x.device, dtype=torch.uint8)
+        keep = bits >= thresh
         keep_prob = 1.0 - thresh / 256.0
-        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+        return torch.where(keep, x / keep_prob, 0.0)
 
 
 class Swish(nn.Module):

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.signal import get_window as _scipy_get_window
 
-__all__ = ["kaldi_mel_banks", "get_window", "povey_window"]
+__all__ = ["kaldi_mel_banks", "melscale_fbanks", "get_window", "povey_window"]
 
 
 def _htk_mel(frequencies):
@@ -41,11 +41,32 @@ def kaldi_mel_banks(num_bins, n_fft, sample_rate, low_freq=20.0, high_freq=None,
     return weights.T.astype(dtype)
 
 
-def get_window(window, win_length):
-    """Periodic analysis window by name ('hann', 'hamming', 'povey', ...)."""
+def _htk_hz(mels):
+    """Mel to Hz by the HTK formula (``mel_to_hz(..., htk=True)`` there)."""
+    mels = np.asanyarray(mels, dtype=np.float64)
+    return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+
+
+def melscale_fbanks(n_freqs, f_min, f_max, n_mels, sample_rate, dtype=np.float32):
+    """torchaudio-convention mel filterbank on HTK mels without area
+    normalization (``melscale_fbanks(..., norm=None, mel_scale="htk")``
+    there), shape ``(n_freqs, n_mels)``: FFT-bin frequencies span
+    ``[0, sample_rate // 2]`` and the triangles are linear in Hz."""
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
+    f_pts = _htk_hz(np.linspace(_htk_mel(f_min), _htk_mel(f_max), n_mels + 2))
+    f_diff = np.diff(f_pts)
+    slopes = f_pts.reshape(1, -1) - all_freqs.reshape(-1, 1)  # (n_freqs, n_mels + 2)
+    down_slopes = -slopes[:, :-2] / f_diff[:-1]
+    up_slopes = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down_slopes, up_slopes)).astype(dtype)
+
+
+def get_window(window, win_length, fftbins=True):
+    """Analysis window by name ('hann', 'hamming', 'povey', ...): periodic by
+    default, symmetric with ``fftbins=False``."""
     if window == "povey":
         return povey_window(win_length)
-    return _scipy_get_window(window, win_length, fftbins=True)
+    return _scipy_get_window(window, win_length, fftbins=fftbins)
 
 
 def povey_window(win_length):

@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import check_generator, resolve_device
 from .filterbanks import get_window, kaldi_mel_banks
 
 __all__ = ["frame_signal", "kaldi_fbank"]
@@ -67,7 +67,9 @@ def kaldi_fbank(
             scaled to the int16 range like kaldi; integer input (raw PCM) is
             already in that range and is only cast.
         dither: Gaussian dither amplitude; applied only when ``> 0`` and an
-            explicit ``generator`` is given (inference passes neither).
+            explicit ``generator`` is given (inference passes neither). The
+            generator must live on ``device``: noise drawn elsewhere would
+            be copied through the host inside every step.
         device: where to compute; a tensor input is moved there.
 
     Returns:
@@ -86,8 +88,8 @@ def kaldi_fbank(
 
     frames = frame_signal(x, frame_length, frame_shift, n_frames)[..., :frame_length]
     if generator is not None and dither > 0:
-        noise = torch.randn(frames.shape, generator=generator,
-                            device=generator.device).to(device)
+        check_generator(generator, device, "kaldi_fbank dither")
+        noise = torch.randn(frames.shape, generator=generator, device=frames.device)
         frames = frames + dither * noise
     if remove_dc:
         frames = frames - frames.mean(dim=-1, keepdim=True)

@@ -1,0 +1,23 @@
+"""Learning-rate schedules (port of ``mindaudio_tpu.scheduler.schedules``).
+
+Only the Conformer recipe's Noam warm-up so far. A schedule is a plain
+function of the step: a Python int gives a float tensor on the CPU, a device
+tensor gives a device tensor (no host round trip inside a train step).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["asr_warmup_lr"]
+
+
+def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
+    """Noam warm-up: ``lr * warmup^0.5 * min(step^-0.5, step * warmup^-1.5)``,
+    the step clamped to at least 1."""
+
+    def schedule(step):
+        s = (torch.as_tensor(step) + start_steps).clamp_min(1).to(torch.float32)
+        return lr * warmup_steps**0.5 * torch.minimum(s**-0.5, s * warmup_steps**-1.5)
+
+    return schedule

@@ -1,0 +1,121 @@
+"""AdamW as ``optax.adamw(lr, b1, b2, eps, weight_decay, mu_dtype)`` computes it.
+
+The Conformer recipe keeps the first moment in bf16 (it halves that moment's
+memory traffic) and the second moment and the parameters in float32;
+``torch.optim.AdamW`` has no such option, so this is the port's own. Both
+moments live in one flat buffer each (the per-parameter moments are views of
+it) and the gradients are gathered into one, so the moment arithmetic is a
+dozen elementwise passes over all parameters at once, whatever their number;
+only the parameters themselves, which the model owns, are updated through
+``torch._foreach_*`` operators. As in optax:
+
+- ``m = b1*m + (1-b1)*g``, where ``b1*m`` is formed in the stored moment's
+  dtype and the sum in float32; the update uses that float32 value and the
+  moment is rounded to ``mu_dtype`` on store;
+- ``v = b2*v + (1-b2)*g^2``; both are bias-corrected by ``1 - b^count`` with
+  the incremented count;
+- ``eps`` is added outside the square root;
+- the weight decay is decoupled and applies to every parameter (biases and
+  LayerNorm too): ``p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
+- a schedule is read at the count before the increment.
+
+The step count and the learning rate live on the device, and
+:meth:`AdamW.step` takes the "apply this update" flag as a device scalar, so
+a train step has no host synchronisation of its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["AdamW"]
+
+
+class AdamW:
+    """See the module docstring.
+
+    Args:
+        named_params: iterable of ``(name, parameter)``, e.g.
+            ``model.named_parameters()``; all on one device, float32.
+        lr: a float, or a schedule ``step tensor -> lr tensor``.
+        mu_dtype: dtype of the stored first moment (the recipe's default is
+            bf16; ``None`` keeps float32).
+    """
+
+    def __init__(self, named_params, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
+                 mu_dtype=None):
+        named = list(named_params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.lr, self.b1, self.b2, self.eps, self.weight_decay = lr, b1, b2, eps, weight_decay
+        device = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        # (b, 1 - b) pairs, each rounded to float32 from the Python float
+        self._b1 = torch.tensor([b1, 1.0 - b1], dtype=torch.float32, device=device)
+        self._b2 = torch.tensor([b2, 1.0 - b2], dtype=torch.float32, device=device)
+        self._sizes = [p.numel() for p in self.params]
+        total = sum(self._sizes)
+        self._mu = torch.zeros(total, dtype=mu_dtype or torch.float32, device=device)
+        self._nu = torch.zeros(total, dtype=torch.float32, device=device)
+        self.mu, self.nu = self._views(self._mu), self._views(self._nu)
+
+    def _views(self, flat):
+        """``flat`` cut into one view per parameter, in the parameter's shape."""
+        return [v.view(p.shape) for v, p in zip(flat.split(self._sizes), self.params)]
+
+    def _lr(self):
+        if callable(self.lr):
+            return self.lr(self.count).to(torch.float32)
+        return torch.full((), self.lr, dtype=torch.float32, device=self.count.device)
+
+    @torch.no_grad()
+    def step(self, grads, ok=None):
+        """One update from ``grads`` (a list aligned with the parameters).
+
+        ``ok`` is an optional boolean device scalar. Where it is False the
+        parameters and both moments keep their values exactly and only the
+        count advances: the gradients are replaced by zeros and the decay
+        rates by 1, and the learning rate by 0, all selected on the device.
+        """
+        lr = self._lr()
+        (b1, g1), (b2, g2) = self._b1, self._b2
+        g = torch.cat([x.reshape(-1) for x in grads]).to(torch.float32)
+        if ok is not None:
+            g = torch.where(ok, g, 0.0)
+            b1, b2 = torch.where(ok, b1, 1.0), torch.where(ok, b2, 1.0)
+            g1, g2 = torch.where(ok, g1, 0.0), torch.where(ok, g2, 0.0)
+            lr = torch.where(ok, lr, 0.0)
+        self.count += 1
+
+        # optax forms b1 * m in the stored moment's dtype (its Python-float
+        # decay takes the array's type), then adds (1 - b1) * g in float32
+        m = (self._mu * b1.to(self._mu.dtype)).float().add_(g * g1)
+        self._nu.mul_(b2).add_(g.square_().mul_(g2))
+        self._mu.copy_(m)  # rounds to mu_dtype
+
+        # float32 powers of Python-float decay rates, as optax takes them
+        count = self.count.to(torch.float32)
+        correction1 = 1.0 - torch.pow(self._b1[0], count)
+        correction2 = 1.0 - torch.pow(self._b2[0], count)
+        update = self._views(m.div_(correction1).div_(
+            (self._nu / correction2).sqrt_().add_(self.eps)))
+        torch._foreach_add_(update, torch._foreach_mul(self.params, self.weight_decay))
+        torch._foreach_sub_(self.params, torch._foreach_mul(update, lr))
+
+    def state_dict(self):
+        """``{"count", "mu": {name: tensor}, "nu": {name: tensor}}``."""
+        return {"count": self.count.clone(),
+                "mu": {n: t.clone() for n, t in zip(self.names, self.mu)},
+                "nu": {n: t.clone() for n, t in zip(self.names, self.nu)}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Load a :meth:`state_dict` (or ``convert.convert_adamw_state``'s
+        result); moments are cast to this optimizer's dtypes and device."""
+        self.count.copy_(torch.as_tensor(state["count"]))
+        for key, mine in (("mu", self.mu), ("nu", self.nu)):
+            missing = set(self.names) ^ set(state[key])
+            if missing:
+                raise KeyError(f"AdamW.load_state_dict: {key} names differ: {sorted(missing)}")
+            for name, t in zip(self.names, mine):
+                t.copy_(state[key][name])

@@ -1,0 +1,92 @@
+"""Train step factory (port of ``mindaudio_tpu.train.state``).
+
+One step is: features, forward and loss under bf16 autocast (float32
+parameters, float32 losses), gradients, global-norm clipping, and an AdamW
+update that a non-finite loss or gradient turns into a no-op. The decision
+stays on the device: nothing in a step reads a value back to the host, so
+steps queue up behind each other and the caller synchronises when it reads a
+metric.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = ["clip_by_global_norm", "skip_nonfinite_update", "make_train_step"]
+
+
+def clip_by_global_norm(grads, max_norm):
+    """Scale ``grads`` (a list) so that their global norm is at most ``max_norm``.
+
+    Returns ``(clipped_grads, global_norm)``. The scale is
+    ``min(1, max_norm / (norm + 1e-6))`` and a non-finite scale becomes 0
+    (``torch.nn.utils.clip_grad_norm_`` does not do that). ``0 * inf`` is
+    still NaN on the overflowed leaves, so pair this with
+    :func:`skip_nonfinite_update`.
+    """
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.clamp_max(max_norm / (gnorm + 1e-6), 1.0)
+    scale = torch.where(torch.isfinite(scale), scale, 0.0)
+    return torch._foreach_mul(grads, scale), gnorm
+
+
+def skip_nonfinite_update(optimizer, loss, grads):
+    """Apply ``optimizer.step(grads)`` unless the loss or any gradient leaf is
+    non-finite; returns the flag ``ok`` as a boolean device scalar.
+
+    On a bad batch the parameters and both moments keep their old values and
+    the step count still advances, so the schedule stays aligned with the data
+    consumed. The flag is never read on the host: the optimizer selects with
+    it on the device.
+    """
+    # the largest magnitude of a leaf is finite exactly when every element is
+    peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
+    ok = torch.isfinite(loss) & torch.isfinite(peaks).all()
+    optimizer.step(grads, ok=ok)
+    return ok
+
+
+def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
+                    autocast_dtype=None):
+    """Build ``step(batch) -> metrics`` for ``model(batch) -> (loss, metrics)``.
+
+    Args:
+        model: the module to train, already in ``train()`` mode if dropout is
+            wanted; ``optimizer`` must hold ``model.named_parameters()``.
+        features_fn: optional ``batch -> (feats, feat_lens)``, run in float32
+            outside autocast (the DFT of the front-end is sensitive to bf16);
+            its results join the batch as ``feats`` and ``feat_lens``.
+        grad_clip_norm: optional global-norm clip; adds ``grad_norm``.
+        autocast_dtype: e.g. ``torch.bfloat16`` for the model's products
+            (parameters and gradients stay float32); ``None`` computes in the
+            parameters' dtype.
+
+    Returns:
+        ``step``; its metrics (``loss``, the model's own, ``grad_norm``) are
+        device scalars, detached. A batch with a non-finite loss or gradient
+        is skipped (:func:`skip_nonfinite_update`).
+    """
+    params = optimizer.params
+    device_type = params[0].device.type
+
+    def step(batch):
+        if features_fn is not None:
+            with torch.no_grad():
+                feats, feat_lens = features_fn(batch)
+            batch = dict(batch, feats=feats, feat_lens=feat_lens)
+        autocast = (torch.autocast(device_type, dtype=autocast_dtype)
+                    if autocast_dtype is not None else contextlib.nullcontext())
+        with autocast:
+            loss, metrics = model(batch)
+        grads = list(torch.autograd.grad(loss, params, allow_unused=True,
+                                         materialize_grads=True))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        if grad_clip_norm is not None:
+            grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip_norm)
+        skip_nonfinite_update(optimizer, metrics["loss"], grads)
+        return metrics
+
+    return step

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import check_generator
+
 __all__ = [
     "make_pad_mask",
     "make_non_pad_mask",
@@ -46,13 +48,19 @@ def subsequent_chunk_mask(size, chunk_size, num_left_chunks=-1, device=None):
     return ok
 
 
-def add_optional_chunk_mask(masks, use_dynamic_chunk, decoding_chunk_size,
-                            static_chunk_size, num_decoding_left_chunks):
-    """Combine the ``(B, 1, T)`` pad mask with a decoding chunk mask.
+def add_optional_chunk_mask(masks, use_dynamic_chunk, use_dynamic_left_chunk,
+                            decoding_chunk_size, static_chunk_size,
+                            num_decoding_left_chunks, generator=None):
+    """Combine the ``(B, 1, T)`` pad mask with an (optionally random-size)
+    chunk mask.
 
     Returns a ``(B, T, T)`` mask when chunking applies, else ``masks``
-    unchanged. Only the decoding branches exist here: training-time chunk
-    sampling (``use_dynamic_chunk`` with ``decoding_chunk_size == 0``) raises.
+    unchanged. With ``use_dynamic_chunk`` and ``decoding_chunk_size == 0``
+    (training) the chunk size is sampled from ``generator``, which must live
+    on the masks' device: ``draw`` uniform in ``[1, T]``, full context when
+    ``draw > T // 2``, else ``draw % 25 + 1``; with ``use_dynamic_left_chunk``
+    the number of left chunks is uniform in ``[0, max((T-1) // chunk, 1))``.
+    The sampled sizes stay on the device (no host synchronisation).
     """
     size = masks.shape[-1]
     if use_dynamic_chunk:
@@ -62,9 +70,18 @@ def add_optional_chunk_mask(masks, use_dynamic_chunk, decoding_chunk_size,
             cm = subsequent_chunk_mask(size, decoding_chunk_size,
                                        num_decoding_left_chunks, masks.device)
             return masks & cm[None]
-        raise NotImplementedError(
-            "dynamic chunk sampling is a training-time branch; pass "
-            "decoding_chunk_size != 0 at inference")
+        check_generator(generator, masks.device, "dynamic chunk sampling")
+        draw = torch.randint(1, size + 1, (), generator=generator, device=masks.device)
+        chunk = torch.where(draw > size // 2, size, draw % 25 + 1)
+        row = torch.arange(size, device=masks.device)[:, None]
+        col = torch.arange(size, device=masks.device)[None, :]
+        cm = col < ((row // chunk + 1) * chunk).clamp_max(size)
+        if use_dynamic_left_chunk:
+            max_left = ((size - 1) // chunk).clamp_min(1)
+            u = torch.rand((), generator=generator, device=masks.device)
+            num_left = torch.minimum((u * max_left).long(), max_left - 1)
+            cm = cm & (col >= ((row // chunk - num_left) * chunk).clamp_min(0))
+        return masks & cm[None]
     if static_chunk_size > 0:
         cm = subsequent_chunk_mask(size, static_chunk_size,
                                    num_decoding_left_chunks, masks.device)

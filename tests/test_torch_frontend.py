@@ -121,13 +121,19 @@ class TestMasks:
         jm = jmask.make_non_pad_mask(jnp.asarray(lens), 9)[:, None, :]
         tm = tmask.make_non_pad_mask(torch.from_numpy(lens), 9)[:, None, :]
         want = np.asarray(jmask.add_optional_chunk_mask(jm, dyn, False, dec, static, left))
-        got = tmask.add_optional_chunk_mask(tm, dyn, dec, static, left).numpy()
+        got = tmask.add_optional_chunk_mask(tm, dyn, False, dec, static, left).numpy()
         np.testing.assert_array_equal(got, want)
 
     def test_training_chunk_sampling_is_not_ported(self):
+        """The name dates from the serving slice, where this branch raised
+        ``NotImplementedError``. It is ported now: it needs a generator, and
+        what it samples is held to its invariants in ``test_torch_train.py``."""
         m = tmask.make_non_pad_mask(torch.tensor([4]), 4)[:, None, :]
-        with pytest.raises(NotImplementedError):
-            tmask.add_optional_chunk_mask(m, True, 0, 0, -1)
+        with pytest.raises(ValueError, match="Generator"):
+            tmask.add_optional_chunk_mask(m, True, False, 0, 0, -1)
+        out = tmask.add_optional_chunk_mask(m, True, False, 0, 0, -1,
+                                            generator=torch.Generator().manual_seed(0))
+        assert out.shape == (1, 4, 4) and out.dtype == torch.bool
 
 
 class TestCommon:
