@@ -16,15 +16,19 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    for ``sm_90a`` (one process per source, all at once);
 3. hold the int8 weight-only GEMM against its plain PyTorch version at every
    ``(M, K, N)`` the serving path launches, in bf16 and f32, plus a ragged
-   shape; time kernel, plain version, ``torch.matmul`` (the yardstick, never
-   called by the port) and the bound;
+   shape; time kernel (and, where K is split, its sum pass), plain version,
+   ``torch.matmul`` (the yardstick, never called by the port) and the bound,
+   beside the first int8 kernel's time from ``FIRST_INT8_MS``; then the edge
+   cases (M 1/63/65/1001, K 200/4864, N 8/4233/2048, x views off 16-byte
+   alignment), untimed; split-K shapes run twice and must be bit-identical;
 4. serve the flagship Conformer at full width (``conformer.yaml``: 80 mel
    bins, d_model 256, 4 heads, FFN 2048, 12 encoder and 6 decoder layers,
    kernel 15, vocab 4233; random weights from a seeded ``torch.Generator``)
    with int8 weights and bf16 compute: 16 synthetic 10 s waveforms through
    ``kaldi_fbank``, ``ctc_greedy_search`` and ``attention_rescoring_batch``
    (beam 10, 50 tokens). The launch count of the int8 kernel in that run
-   must equal the count of quantized layers on the path. Then one request
+   must equal the count of quantized layers on the path, and that of its
+   split-K sum pass the count of those whose K is split. Then one request
    (B=1, float32 model) is held against the same weights on the CPU through
    the plain versions;
 5. hold the CTC forward and backward kernels against the plain PyTorch
@@ -112,6 +116,24 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms_by_name(fn, iters=10):
+    """Device time per call of ``fn`` in ms for each CUDA kernel it launches,
+    by name: ``torch.profiler`` over ``iters`` eager calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] += e.device_time / 1e3 / iters
+    return out
+
+
 def bf16_ulp(v):
     """One bf16 ulp of ``v`` (8 significant bits)."""
     return 2.0 ** (np.floor(np.log2(max(abs(v), np.finfo(np.float32).tiny))) - 7)
@@ -125,32 +147,67 @@ def gemm_bound(m, k, n, x_bytes):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_int8_gemm(quant, m, k, n, dtype, gen):
-    """Kernel vs plain version at one shape; times and bound."""
-    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+# the first int8 kernel (WMMA, no pipelining; commit 39ee133) at each shape of
+# phase 3, ms per launch, x bf16 unless f32: the per-shape table of the first
+# slice in PERF.md §6, measured by this script on NVIDIA H100 80GB HBM3, 700 W
+FIRST_INT8_MS = {
+    (4096, 4864, 256, "bfloat16"): 0.2344, (4096, 256, 2048, "bfloat16"): 0.1009,
+    (4096, 2048, 256, "bfloat16"): 0.0715, (4096, 256, 256, "bfloat16"): 0.0196,
+    (256, 256, 256, "bfloat16"): 0.0148, (4096, 256, 512, "bfloat16"): 0.0347,
+    (4096, 256, 4233, "bfloat16"): 0.2499, (8160, 256, 256, "bfloat16"): 0.0312,
+    (40960, 256, 256, "bfloat16"): 0.1315, (8160, 256, 2048, "bfloat16"): 0.1880,
+    (8160, 2048, 256, "bfloat16"): 0.1083, (8160, 256, 4233, "bfloat16"): 0.4700,
+    (256, 4864, 256, "float32"): 0.1563,
+}
+
+
+def check_int8_gemm(quant, m, k, n, dtype, gen, timed=True, x_offset=0):
+    """Kernel vs plain version at one shape, with the weight held as
+    ``Int8Linear`` holds it (rows padded to 16 bytes); times and bound.
+    ``x_offset`` elements in front of x make its address not 16-byte aligned.
+    Where the wrapper splits K, the kernel runs twice and must give the same
+    bits, and the timed case also reads the split-K sum pass's own device time
+    (``reduce_ms``, part of ``ms``) from the profiler."""
+    x = torch.randn(m * k + x_offset, device="cuda", generator=gen).to(dtype)[x_offset:]
+    x = x.view(m, k)
     v, s = quant.quantize_int8(0.05 * torch.randn(k, n, device="cuda", generator=gen))
-    got = quant.int8_matmul(x, v, s)
+    w = quant.pad_int8_rows(v)[:, :n]
+    got = quant.int8_matmul(x, w, s)
     want = quant.int8_matmul_reference(x, v, s)
+    splits = quant.split_k(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    again = quant.int8_matmul(x, w, s) if splits > 1 else got
     torch.cuda.synchronize()
+    name = f"int8_matmul {(m, k, n)} {dtype} x_offset={x_offset}"
     if not torch.isfinite(got).all():
-        raise AssertionError(f"int8_matmul {(m, k, n)} {dtype}: non-finite output")
+        raise AssertionError(f"{name}: non-finite output")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: split-K ({splits}) output differs between two runs")
     err = (got.float() - want.float()).abs().max().item()
     peak = want.float().abs().max().item()
     # same bf16 products summed in f32 in another order: f32 out agrees to
     # float32 rounding, bf16 out is that sum rounded once (one ulp apart)
     tol = 1e-5 * peak if dtype == torch.float32 else bf16_ulp(peak)
     if not err <= tol:
-        raise AssertionError(f"int8_matmul {(m, k, n)} {dtype}: max err {err} > tol {tol}")
+        raise AssertionError(f"{name}: max err {err} > tol {tol}")
+    result = {"m": m, "k": k, "n": n, "dtype": str(dtype).replace("torch.", ""),
+              "x_offset": x_offset, "splits": splits, "max_abs_err": err,
+              "max_rel_err": err / peak, "tol": tol}
+    if not timed:
+        return result
     xb, wb = x.to(torch.bfloat16), (v.to(torch.bfloat16) * s.to(torch.bfloat16))
     bound, bound_by = gemm_bound(m, k, n, x.element_size())
-    return {
-        "m": m, "k": k, "n": n, "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_err": err, "max_rel_err": err / peak, "tol": tol,
-        "ms": cuda_ms(lambda: quant.int8_matmul(x, v, s)),
-        "plain_ms": cuda_ms(lambda: quant.int8_matmul_reference(x, v, s), iters=5),
-        "library_ms": cuda_ms(lambda: torch.matmul(xb, wb)),
-        "bound_ms": bound, "bound_by": bound_by,
-    }
+    result.update(
+        ms=cuda_ms(lambda: quant.int8_matmul(x, w, s)),
+        plain_ms=cuda_ms(lambda: quant.int8_matmul_reference(x, v, s), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(xb, wb)),
+        bound_ms=bound, bound_by=bound_by)
+    result["bound_share"] = bound / result["ms"]
+    if splits > 1:
+        by_name = kernel_ms_by_name(lambda: quant.int8_matmul(x, w, s))
+        result["reduce_ms"] = sum(t for name, t in by_name.items() if "splitk_reduce" in name)
+        if not result["reduce_ms"] > 0:
+            raise AssertionError(f"{name}: the profiler saw no split-K sum pass: {dict(by_name)}")
+    return result
 
 
 def count_gemm_shapes(model, quant, shapes):
@@ -601,7 +658,7 @@ def main():
     log(f"build: {sorted(reports) or 'cached'} in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernel against its plain version at the slice's shapes
@@ -619,15 +676,38 @@ def main():
     ragged = (1001, D_MODEL, VOCAB)
     cases = dict.fromkeys([(s, torch.bfloat16) for s in path_shapes + [ragged]]
                           + [(s, torch.float32) for s in path_shapes + one_request + [ragged]])
+    lib = quant._launcher()  # checks the kernel's tile against split_k's
+    log(f"int8_matmul kernel: {lib.int8_matmul_smem_bytes()} bytes of dynamic shared memory "
+        "per block of 512 threads (two consumer, two producer warpgroups); tile "
+        f"{quant.TILE_M}x{quant.TILE_N}, K stage {quant.TILE_K}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
-    log("int8_matmul vs plain: M K N dtype | max_abs max_rel tol | kernel plain library bound (ms)")
+    log("int8_matmul vs plain: M K N dtype splits | max_abs max_rel tol | kernel (of it the "
+        "split-K sum) plain library bound (ms) | bound/kernel | first int8 kernel (ms, "
+        "FIRST_INT8_MS), faster")
     for (m, k, n), dtype in cases:
         r = check_int8_gemm(quant, m, k, n, dtype, gen)
         results.append(r)
-        log(f"  {m} {k} {n} {r['dtype']} | {r['max_abs_err']:.3e} {r['max_rel_err']:.3e} "
-            f"{r['tol']:.3e} | {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        first = FIRST_INT8_MS.get((m, k, n, r["dtype"]))
+        reduce = f" ({r['reduce_ms']:.4f})" if "reduce_ms" in r else ""
+        log(f"  {m} {k} {n} {r['dtype']} {r['splits']} | {r['max_abs_err']:.3e} "
+            f"{r['max_rel_err']:.3e} {r['tol']:.3e} | {r['ms']:.4f}{reduce} {r['plain_ms']:.4f} "
+            f"{r['library_ms']:.4f} {r['bound_ms']:.4f} ({r['bound_by']}) | "
+            f"{r['bound_share']:.3f} | " + (f"{first:.4f} {r['ms'] < first}" if first else "-"))
+    # edge cases, checked and not timed: ragged M, K and N, split K on a long
+    # K, and x views whose address is not 16-byte aligned (the plain-load path)
+    edges = [((m, k, n), dtype, 0) for m in (1, 63, 65, 1001) for k in (200, 4864)
+             for n in (8, VOCAB, FFN) for dtype in (torch.bfloat16, torch.float32)]
+    edges += [((513, D_MODEL, D_MODEL), torch.bfloat16, 1), ((65, 4864, VOCAB), torch.bfloat16, 3),
+              ((63, 200, 2048), torch.float32, 1)]
+    edge_results = [check_int8_gemm(quant, m, k, n, dtype, gen, timed=False, x_offset=off)
+                    for (m, k, n), dtype, off in edges]
+    split_cases = sorted({(r["m"], r["k"], r["n"], r["splits"]) for r in edge_results + results
+                          if r["splits"] > 1})
+    log(f"int8_matmul edge cases: {len(edge_results)} agree (M 1/63/65/1001 x K 200/4864 x "
+        f"N 8/{VOCAB}/{FFN} x bf16/f32, and 3 x views off 16-byte alignment); worst "
+        f"max_abs/tol {max(r['max_abs_err'] / r['tol'] for r in edge_results):.3f}; split-K "
+        f"bit-identical over two runs at {len(split_cases)} shapes: {split_cases}")
     checked = {(r["m"], r["k"], r["n"], r["dtype"]): r for r in results}
 
     # 4. the slice at full width
@@ -669,9 +749,9 @@ def main():
         f"{1e3 * (time.perf_counter() - t):.1f} ms per batch")
     shapes = collections.Counter()
     hooks = count_gemm_shapes(serving.model, quant, shapes)
-    quant.int8_matmul.launches = 0
+    quant.int8_matmul.launches = quant.int8_matmul.reduce_launches = 0
     feats, (hyps, scores), rescored, times = serve()
-    launches = quant.int8_matmul.launches
+    launches, reduce_launches = quant.int8_matmul.launches, quant.int8_matmul.reduce_launches
     for h in hooks:
         h.remove()
     for name, sec in times.items():
@@ -683,10 +763,20 @@ def main():
     unchecked = set(shapes) - set(checked)
     if unchecked:
         raise AssertionError(f"GEMM shapes on the path not checked in phase 3: {unchecked}")
-    totals = {key: sum(checked[s][key] * n for s, n in shapes.items())
-              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    expected_reduce = sum(n for s, n in shapes.items() if checked[s]["splits"] > 1)
+    log(f"split-K sum pass launches in the served batch: {reduce_launches} (expected "
+        f"{expected_reduce}); int8 GEMM launches by (M, K, N, dtype): "
+        f"{dict(sorted(shapes.items()))}")
+    if reduce_launches != expected_reduce:
+        raise AssertionError(f"split-K sum pass launched {reduce_launches} times, "
+                             f"expected {expected_reduce}")
+    totals = {key: sum(checked[s].get(key, 0.0) * n for s, n in shapes.items())
+              for key in ("ms", "reduce_ms", "plain_ms", "library_ms", "bound_ms")}
+    first_total = sum(FIRST_INT8_MS[s] * n for s, n in shapes.items())
     log("int8 GEMM device time per served batch (phase-3 times x launches): "
-        + ", ".join(f"{key} {value:.3f}" for key, value in totals.items()))
+        + ", ".join(f"{key} {value:.3f}" for key, value in totals.items())
+        + f"; kernel / library {totals['ms'] / totals['library_ms']:.2f}; the first int8 "
+        f"kernel {first_total:.3f} (FIRST_INT8_MS)")
 
     if feats.shape != (BATCH, 1028, N_MELS) or not torch.isfinite(feats).all():
         raise AssertionError(f"fbank: shape {tuple(feats.shape)} or non-finite values")
@@ -830,6 +920,7 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": [head["m"], head["k"], head["n"], head["dtype"]],
+        "reduce_kernel": "splitk_reduce_kernel", "reduce_launches": reduce_launches,
         "card": card, "shapes": results,
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",

@@ -44,15 +44,93 @@ def test_int8_matmul_matches_plain(m, k, n, dtype):
     g = torch.Generator(device="cuda").manual_seed(m)
     x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
     v, s = tq.quantize_int8(0.05 * torch.randn(k, n, device="cuda", generator=g))
-    before = tq.int8_matmul.launches
+    before = tq.int8_matmul.launches, tq.int8_matmul.reduce_launches
+    splits = tq.split_k(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
     got = tq.int8_matmul(x, v, s)
     torch.cuda.synchronize()
-    assert tq.int8_matmul.launches == before + 1
+    assert (tq.int8_matmul.launches, tq.int8_matmul.reduce_launches) == (
+        before[0] + 1, before[1] + (splits > 1))
     assert got.dtype == dtype and got.shape == (m, n)
     want = tq.int8_matmul_reference(x, v, s).float().cpu().numpy()
     err = np.abs(got.float().cpu().numpy() - want).max()
     peak = np.abs(want).max()
     assert err <= (1e-5 * peak if dtype == torch.float32 else bf16_ulp(peak)), err
+
+
+def _int8_case(m, k, n, dtype, seed, x_offset=0):
+    """x (m, k) starting ``x_offset`` elements into its buffer, and the
+    weight as ``Int8Linear`` holds it: rows padded to 16 bytes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m * k + x_offset, device="cuda", generator=g).to(dtype)[x_offset:].view(m, k)
+    v, s = tq.quantize_int8(0.05 * torch.randn(k, n, device="cuda", generator=g))
+    return x, tq.pad_int8_rows(v)[:, :n], v, s
+
+
+def _assert_close_to_plain(got, x, v, s):
+    want = tq.int8_matmul_reference(x, v, s).float().cpu().numpy()
+    err = np.abs(got.float().cpu().numpy() - want).max()
+    peak = np.abs(want).max()
+    assert err <= (1e-5 * peak if x.dtype == torch.float32 else bf16_ulp(peak)), err
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 1001])
+@pytest.mark.parametrize("k", [200, 4864])
+@pytest.mark.parametrize("n", [8, 4233, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_edges(m, k, n, dtype):
+    """Ragged M, K not a multiple of the 64-deep stage, long K (split), N
+    narrower than a tile and N whose rows are not 16-byte aligned, with the
+    padded weight layout; same tolerance as above."""
+    x, w, v, s = _int8_case(m, k, n, dtype, seed=m + k + n)
+    got = tq.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, n)
+    _assert_close_to_plain(got, x, v, s)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(4096, 4864, 256, torch.bfloat16),
+                                         (256, 4864, 256, torch.float32),
+                                         (4096, 2048, 256, torch.bfloat16)])
+def test_int8_matmul_split_k_is_deterministic(m, k, n, dtype):
+    """The few-tile, long-K shapes split K; the splits are summed in a fixed
+    order, so two runs give the same bits. Each call launches the sum pass
+    once, counted apart."""
+    assert tq.split_k(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    x, w, v, s = _int8_case(m, k, n, dtype, seed=7)
+    before = tq.int8_matmul.launches, tq.int8_matmul.reduce_launches
+    first = tq.int8_matmul(x, w, s)
+    second = tq.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert (tq.int8_matmul.launches, tq.int8_matmul.reduce_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(first, second)
+    _assert_close_to_plain(first, x, v, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_offset", [1, 3])
+def test_int8_matmul_x_not_16_byte_aligned(dtype, x_offset):
+    """An x view whose address is not 16-byte aligned takes the plain-load
+    path; it is not copied."""
+    x, w, v, s = _int8_case(513, 256, 4233, dtype, seed=x_offset, x_offset=x_offset)
+    assert x.data_ptr() % 16
+    _assert_close_to_plain(tq.int8_matmul(x, w, s), x, v, s)
+
+
+def test_int8_linear_serves_the_padded_layout():
+    g = torch.Generator(device="cuda").manual_seed(11)
+    v, s = tq.quantize_int8(0.05 * torch.randn(256, 4233, device="cuda", generator=g))
+    bias = torch.randn(4233, device="cuda", generator=g)
+    layer = tq.Int8Linear(v, s, bias)
+    assert layer.qweight.stride(0) == 4240 and torch.equal(layer.values, v)
+    x = torch.randn(2, 300, 256, device="cuda", generator=g).bfloat16()
+    before = tq.int8_matmul.launches
+    y = layer(x)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul.launches == before + 1
+    want = tq.int8_matmul_reference(x, v, s) + bias.bfloat16()
+    assert (y.float() - want.float()).abs().max().item() <= 2 * bf16_ulp(
+        want.float().abs().max().item())
 
 
 def test_int8_matmul_rejects_what_the_kernel_does_not_take():
