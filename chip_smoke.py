@@ -38,10 +38,17 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    ``T = 2L+1``, full length, blank as the last class, one frame); time
    forward, backward, the plain version, ``F.ctc_loss`` (the yardstick, never
    called by the port) and the bound;
-6. hold the fused log-mel kernel against its plain version at the bench shape
-   ``(128, 160000)``, at ``(3, 16037)`` with 40 mels, with ``kaldi=True`` and
-   with ``center=False``; then drive the log-mel entry point as the bench
-   does and count its launches;
+6. hold the fused log-mel kernel (three TF32 tensor-core passes) against its
+   plain version at both precisions: at the bench shape ``(128, 160000)``,
+   at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)``, at
+   ``(3, 16037)`` with 40 mels, with ``kaldi=True`` and with
+   ``center=False``, with hop 100 and a hamming window, and on a signal
+   shorter than a frame; time the kernel and the plain version in turns
+   (plain, kernel, kernel, plain) at the first three, beside the bound of
+   three TF32 passes (and, printed only, the float32 CUDA-core and one-pass
+   TF32 bounds), and hold both against float64 on four rows of the bench
+   shape; then drive the log-mel entry point as the bench does and count
+   its launches;
 7. train the flagship Conformer at full width and depth as the train bench
    builds the step: B=32, the 1027-frame bucket holding 10 s of seeded noise,
    20 labels, dither, SpecAugment, dropout, bf16 autocast, ``ctc_impl="kernel"``,
@@ -60,6 +67,7 @@ for both matrix products and cuDNN convolutions.
 
 import collections
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -402,39 +410,83 @@ def check_ctc(ctc_dp, name, gen):
     return result
 
 
+def logmel_plan(logmel, n_fft=400, win_length=None, hop_length=None, window="hann",
+                n_mels=80, sample_rate=16000, f_min=0.0, f_max=None, kaldi=False, **_):
+    """The kernel's launch plan and host tables at these arguments."""
+    design = (n_fft, win_length or n_fft, window, n_mels, sample_rate, f_min, f_max, kaldi)
+    table, bands, wts = logmel._kernel_design(*design)
+    hop = hop_length or (win_length or n_fft) // 2
+    carries = int(bands[3].max()) + 1
+    return logmel.kernel_plan(n_fft, hop, n_mels, wts.size, carries), table, bands, wts, carries
+
+
 def check_logmel(logmel, shape, gen, timed=False, **kw):
-    """Log-mel kernel vs its plain version at one shape; times and bound."""
+    """Log-mel kernel vs its plain version at one shape, at both precisions
+    (one route: the outputs must be equal); times in turns and the bound."""
     x = torch.randn(*shape, device="cuda", generator=gen)
     got = logmel.fused_logmel(x, **kw)
     want = logmel.fused_logmel_reference(x, **kw)
+    again = logmel.fused_logmel(x, precision="highest", **kw)
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"fused_logmel {shape} {kw}: shape {tuple(got.shape)} vs "
                              f"{tuple(want.shape)}, or non-finite values")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fused_logmel {shape} {kw}: precision 'default' and 'highest' "
+                             "differ; both take the three-pass route")
     err = (got - want).abs()
     # the tolerance the JAX package holds its own kernel to: rtol = atol = 1e-3
-    excess = (err - (1e-3 + 1e-3 * want.abs())).max().item()
+    tol = 1e-3 + 1e-3 * want.abs()
+    excess = (err - tol).max().item()
     result = {"shape": list(shape), "args": {k: str(v) for k, v in kw.items()},
-              "out_shape": list(got.shape), "max_abs_err": err.max().item(),
+              "precisions": ["default", "highest"], "out_shape": list(got.shape),
+              "max_abs_err": err.max().item(), "max_err_over_tol": (err / tol).max().item(),
               "tol": "1e-3 + 1e-3*|plain|"}
     if not excess <= 0:
         raise AssertionError(f"fused_logmel {shape} {kw}: exceeds tolerance by {excess}: {result}")
     if timed:
+        plan, table, bands, wts, _ = logmel_plan(logmel, **kw)
         b, n_frames, n_mels = got.shape
         n_fft = kw.get("n_fft", 400)
-        n_freq = n_fft // 2 + 1
-        ops = 2.0 * b * n_frames * (n_fft * 2 * n_freq + n_freq * n_mels)
-        moved = 4.0 * (x.numel() + got.numel() + 2 * n_fft * n_freq + n_freq * n_mels)
-        t_ops, t_bytes = ops / H100_F32_FLOP_PER_S, moved / H100_BYTES_PER_S
+        n_freq, frames = n_fft // 2 + 1, b * n_frames
+        dft = 2.0 * frames * n_fft * 2 * n_freq  # re and im, one pass
+        mel_banded = 2.0 * frames * wts.size
+        mel_dense = 2.0 * frames * n_freq * n_mels
+        moved = 4.0 * (x.numel() + got.numel()) + table.nbytes + bands.nbytes + wts.nbytes
+        t_bytes = moved / H100_BYTES_PER_S
+        t_ops = 3 * dft / H100_TF32_FLOP_PER_S + mel_banded / H100_F32_FLOP_PER_S
+        plain = functools.partial(logmel.fused_logmel_reference, x, **kw)
+        turns = (plain, functools.partial(logmel.fused_logmel, x, precision="default", **kw),
+                 functools.partial(logmel.fused_logmel, x, precision="highest", **kw), plain)
+        times = [cuda_ms(f, iters=5) for f in turns]
         result.update(
-            ms=cuda_ms(lambda: logmel.fused_logmel(x, **kw), iters=5),
-            plain_ms=cuda_ms(lambda: logmel.fused_logmel_reference(x, **kw), iters=5),
+            ms=(times[1] + times[2]) / 2, plain_ms=(times[0] + times[3]) / 2, turns_ms=times,
             bound_ms=1e3 * max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            bound_ms_tf32_tensor_cores=1e3 * max(ops / H100_TF32_FLOP_PER_S, t_bytes),
-            bound_ms_bf16_tensor_cores=1e3 * max(ops / H100_BF16_FLOP_PER_S, t_bytes),
-            operations=ops, bytes=moved)
+            passes=3, operations=3 * dft + mel_banded, bytes=moved,
+            bound_ms_f32_cuda_cores=1e3 * max((dft + mel_dense) / H100_F32_FLOP_PER_S, t_bytes),
+            bound_ms_one_tf32_pass=1e3 * max(dft / H100_TF32_FLOP_PER_S
+                                             + mel_banded / H100_F32_FLOP_PER_S, t_bytes),
+            frames_per_block=plan.fpb, ring_slots=plan.stages, smem_bytes=plan.smem_bytes)
     return result
+
+
+def logmel_against_f64(logmel, x, **kw):
+    """Max |err| / (1e-3 + 1e-3 |exact|) of the kernel and of the plain
+    version against the same function in float64 on the CPU."""
+    wr, wi, fb, _ = logmel._design(kw["n_fft"], kw["n_fft"], "hann", kw["n_mels"], 16000, 0.0,
+                                   None, False)
+    xd = torch.nn.functional.pad(x.double().cpu(), (kw["n_fft"] // 2, kw["n_fft"] // 2))
+    n_frames = 1 + x.shape[1] // kw["hop_length"]
+    frames = xd.unfold(-1, kw["n_fft"], kw["hop_length"])[:, :n_frames]
+    w64 = lambda a: torch.from_numpy(a.astype(np.float64))  # noqa: E731
+    re, im = frames @ w64(wr), frames @ w64(wi)
+    exact = torch.log(torch.clamp_min((re * re + im * im) @ w64(fb), 1e-10))
+    out = {}
+    for name, fn in (("kernel", logmel.fused_logmel), ("plain", logmel.fused_logmel_reference)):
+        got = fn(x, **kw).double().cpu()
+        out[name] = ((got - exact).abs() / (1e-3 + 1e-3 * exact.abs())).max().item()
+    return out
 
 
 def train_batch(batch_size, seed, device):
@@ -862,39 +914,76 @@ def main():
 
     # 6. fused log-mel kernel against its plain version, then its entry point
     gen = torch.Generator(device="cuda").manual_seed(3)
+    asr = dict(n_fft=400, hop_length=160, n_mels=N_MELS)
+    tts = dict(sample_rate=22050, n_fft=1024)
+    plan, _, _, wts, carries = logmel_plan(logmel, **asr)
+    smem = logmel._library().logmel_smem_bytes(plan.fpb, plan.rows, plan.pitch, N_MELS, wts.size,
+                                               carries, plan.stages)
+    if smem != plan.smem_bytes:
+        raise AssertionError(f"fused_logmel: the kernel lays out {smem} bytes of shared memory, "
+                             f"the wrapper's plan {plan.smem_bytes}")
+    log(f"fused_logmel kernel at n_fft 400, hop 160, 80 mels: {smem} bytes of dynamic shared "
+        f"memory per block of {(plan.fpb // 64 + 1) * 128} threads ({plan.fpb} frames: two "
+        f"consumer warpgroups, a producer thread, three mel warps), {plan.stages} ring slots")
     logmel_results = [
-        check_logmel(logmel, (LOGMEL_BATCH, LOGMEL_SAMPLES), gen, timed=True,
-                     n_fft=400, hop_length=160, n_mels=N_MELS),
+        check_logmel(logmel, (LOGMEL_BATCH, LOGMEL_SAMPLES), gen, timed=True, **asr),
+        check_logmel(logmel, (16, 220500), gen, timed=True, hop_length=256, n_mels=80, **tts),
+        check_logmel(logmel, (16, 220500), gen, timed=True, hop_length=300, n_mels=128, **tts),
         check_logmel(logmel, (3, 16000 + 37), gen, n_fft=400, hop_length=160, n_mels=40),
         check_logmel(logmel, (3, 16000 + 37), gen, n_fft=400, hop_length=160, n_mels=40,
                      kaldi=True),
         check_logmel(logmel, (3, 16000 + 37), gen, n_fft=400, hop_length=160, n_mels=40,
                      center=False),
+        check_logmel(logmel, (2, 5003), gen, n_mels=23, n_fft=512, win_length=400,
+                     hop_length=100, window="hamming", f_min=20.0, f_max=7600.0, log_floor=1e-5),
+        check_logmel(logmel, (1, 300), gen, n_mels=8),  # shorter than one frame
     ]
     for r in logmel_results:
-        log(f"fused_logmel vs plain: {r['shape']} {r['args']} -> {r['out_shape']}: "
-            f"max abs err {r['max_abs_err']:.3e} (tol {r['tol']})")
+        log(f"fused_logmel vs plain, both precisions: {r['shape']} {r['args']} -> "
+            f"{r['out_shape']}: max abs err {r['max_abs_err']:.3e}, max err/tol "
+            f"{r['max_err_over_tol']:.4f} (tol {r['tol']})")
+    log("fused_logmel times, in turns (plain, kernel 'default', kernel 'highest', plain; ms) | "
+        "kernel plain | bound "
+        "(three TF32 passes) | float32 CUDA-core bound, one-TF32-pass bound | frames a block, "
+        "ring slots, shared bytes")
+    for r in logmel_results[:3]:
+        log(f"  {r['shape']} {r['args']} | {' '.join(f'{t:.4f}' for t in r['turns_ms'])} | "
+            f"{r['ms']:.4f} {r['plain_ms']:.4f} | {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{r['operations']:.3e} operations, {r['bytes'] / 1e6:.1f} MB) | "
+            f"{r['bound_ms_f32_cuda_cores']:.4f} {r['bound_ms_one_tf32_pass']:.4f} | "
+            f"{r['frames_per_block']} {r['ring_slots']} {r['smem_bytes']}")
     mel = logmel_results[0]
-    log(f"fused_logmel times at {mel['shape']}: kernel {mel['ms']:.3f} ms, plain "
-        f"{mel['plain_ms']:.3f} ms, bound {mel['bound_ms']:.3f} ms ({mel['bound_by']}, float32 "
-        f"peak; {mel['bound_ms_tf32_tensor_cores']:.3f} ms at the TF32 and "
-        f"{mel['bound_ms_bf16_tensor_cores']:.3f} ms at the bf16 tensor-core peak), "
-        f"{mel['operations']:.3e} operations, {mel['bytes'] / 1e6:.1f} MB")
+    if not max(mel["turns_ms"][1:3]) < min(mel["turns_ms"][0], mel["turns_ms"][3]):
+        raise AssertionError(f"fused_logmel at {mel['shape']}: the kernel is not faster than the "
+                             f"plain version at both precisions: {mel['turns_ms']}")
+    exact = logmel_against_f64(
+        logmel, torch.randn(4, LOGMEL_SAMPLES, device="cuda", generator=gen), **asr)
+    log(f"fused_logmel against float64 on (4, {LOGMEL_SAMPLES}): max err/tol kernel "
+        f"{exact['kernel']:.4f}, plain {exact['plain']:.4f}")
+    if not exact["kernel"] <= 1:
+        raise AssertionError(f"fused_logmel: exceeds the tolerance against float64: {exact}")
+    mel["against_f64_max_err_over_tol"] = exact
     wave = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (LOGMEL_BATCH, LOGMEL_SAMPLES)).astype(np.float32)).cuda()
     logmel.fused_logmel(wave, n_fft=400, hop_length=160, n_mels=N_MELS)  # warm-up
     torch.cuda.synchronize()
     logmel.fused_logmel.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t = time.perf_counter()
+    start.record()
     for _ in range(LOGMEL_CALLS):
         mel_out = logmel.fused_logmel(wave, n_fft=400, hop_length=160, n_mels=N_MELS)
+    end.record()
+    enqueue_sec = (time.perf_counter() - t) / LOGMEL_CALLS
     torch.cuda.synchronize()
     mel_sec = (time.perf_counter() - t) / LOGMEL_CALLS
     logmel_launches = logmel.fused_logmel.launches
     log(f"log-mel entry point: {LOGMEL_CALLS} calls of {tuple(wave.shape)} -> "
         f"{tuple(mel_out.shape)}, {1e3 * mel_sec:.3f} ms per call, "
         f"{mel_out.shape[0] * mel_out.shape[1] / mel_sec / 1e6:.2f} M frames/s, "
-        f"{logmel_launches} launches")
+        f"{logmel_launches} launches; the host took {1e3 * enqueue_sec:.3f} ms per call to "
+        f"enqueue, the device {start.elapsed_time(end) / LOGMEL_CALLS:.3f} ms per call between "
+        "events")
     if mel_out.shape != (LOGMEL_BATCH, 1001, N_MELS) or not torch.isfinite(mel_out).all():
         raise AssertionError(f"log-mel entry point: shape {tuple(mel_out.shape)} or non-finite")
     if logmel_launches != LOGMEL_CALLS:
@@ -948,7 +1037,7 @@ def main():
         "replaces": "mindaudio_tpu/ops/pallas_mel.py:96",
         "launches": logmel_launches, "max_abs_err": mel["max_abs_err"],
         "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
-        "bound_by": mel["bound_by"], "library_ms": None, "shape": mel["shape"],
+        "bound_by": mel["bound_by"], "library_ms": None, "shape": mel["shape"], "passes": 3,
         "card": card, "shapes": logmel_results,
     }]}))
     print(json.dumps({"ok": True, "device": {

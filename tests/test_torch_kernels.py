@@ -237,14 +237,18 @@ def test_ctc_kernel_under_autocast_and_on_the_cpu():
     ((2, 5003), dict(n_mels=23, n_fft=512, win_length=400, hop_length=100, window="hamming",
                      f_min=20.0, f_max=7600.0, log_floor=1e-5)),
     ((1, 300), dict(n_mels=8)),  # shorter than one frame: every frame reads zeros
+    ((4, 220500), dict(n_fft=1024, hop_length=256, n_mels=80, sample_rate=22050)),  # FastSpeech2
+    ((4, 220500), dict(n_fft=1024, hop_length=300, n_mels=128, sample_rate=22050)),  # WaveGrad
 ])
-def test_fused_logmel_matches_plain(shape, kw):
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_fused_logmel_matches_plain(shape, kw, precision):
     """rtol = atol = 1e-3 on the log-mel, as the JAX package holds its own
-    kernel to its reference; both sides are float32 sums in another order."""
+    kernel to its reference; the kernel's DFT is three TF32 passes at both
+    precisions, the plain version float32 products."""
     g = torch.Generator(device="cuda").manual_seed(shape[1])
     x = torch.randn(*shape, device="cuda", generator=g)
     before = tmel.fused_logmel.launches
-    got = tmel.fused_logmel(x, **kw)
+    got = tmel.fused_logmel(x, precision=precision, **kw)
     torch.cuda.synchronize()
     assert tmel.fused_logmel.launches == before + 1
     want = tmel.fused_logmel_reference(x, **kw)
@@ -257,6 +261,12 @@ def test_fused_logmel_rejects_what_the_kernel_does_not_take():
         tmel.fused_logmel(torch.zeros(2, 800, device="cuda", dtype=torch.float64))
     with pytest.raises(ValueError):
         tmel.fused_logmel(torch.zeros(800, device="cuda"))
+    before = tmel.fused_logmel.launches
+    with pytest.raises(ValueError, match="hop 4 < 8"):  # the plan refuses it: no fallback
+        tmel.fused_logmel(torch.zeros(1, 800, device="cuda"), hop_length=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmel.fused_logmel(torch.zeros(1, 20000, device="cuda"), n_fft=8192, hop_length=2048)
+    assert tmel.fused_logmel.launches == before
 
 
 def test_random_draws_stay_on_the_device():
