@@ -31,13 +31,22 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    split-K sum pass the count of those whose K is split. Then one request
    (B=1, float32 model) is held against the same weights on the CPU through
    the plain versions;
-5. hold the CTC forward and backward kernels against the plain PyTorch
-   recursion, in value and in gradient at ``logp_ext`` and at the logits, at
-   the flagship train shape, the recipe's longest labels, the long bucket and
-   the edge cases (ragged lengths with repeated labels, an empty label,
-   ``T = 2L+1``, full length, blank as the last class, one frame); time
-   forward, backward, the plain version, ``F.ctc_loss`` (the yardstick, never
-   called by the port) and the bound;
+5. run the CTC chain-latency ladder (``csrc/ctc_probe.cu``: the least
+   latency of one dependent step of the recursion, then what shared memory
+   and a barrier, a log-prob load one step ahead and a store of the row each
+   add), one line per rung; then hold the CTC forward and backward kernels
+   against the plain PyTorch recursion, in value and in gradient at
+   ``logp_ext`` and at the logits, at the flagship train shape, the recipe's
+   longest labels, the long bucket and the edge cases (ragged lengths with
+   repeated labels, an empty label, ``T = 2L+1``, full length, blank as the
+   last class, one frame, S = 63/65/127/129 at the lane and register edges,
+   S = 255/257 at the one-warp path's end, S = 1201 and 12001 on the block
+   path, B = 5, T not a multiple of the chunk and shorter than one, a zero
+   length beside a full one, lengths that differ per row), printing each
+   case's launch plan; time forward and backward, the plain version and
+   ``F.ctc_loss``'s device time (the yardstick, never called by the port),
+   beside the byte bound and the chain floor (the longest length times the
+   ladder's least measured step latency);
 6. hold the fused log-mel kernel (three TF32 tensor-core passes) against its
    plain version at both precisions: at the bench shape ``(128, 160000)``,
    at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)``, at
@@ -69,6 +78,7 @@ import collections
 import copy
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -140,6 +150,13 @@ def kernel_ms_by_name(fn, iters=10):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.name] += e.device_time / 1e3 / iters
     return out
+
+
+def device_ms(fn, iters=10):
+    """Device time of one call of ``fn`` in ms: the durations of all the
+    kernels and copies it puts on the card, summed (``kernel_ms_by_name``);
+    the host's gaps between them are not counted."""
+    return sum(kernel_ms_by_name(fn, iters).values())
 
 
 def bf16_ulp(v):
@@ -307,18 +324,106 @@ def ctc_case(name, gen):
         return draw(2, 19, 5, 9, lens=[19, 12], llens=[5, 3], blank=8)
     if name == "single_frame":
         return draw(2, 1, 1, 5, llens=[1, 0])
+    # the one-warp kernel's lane and register edges (S = 63, 65, 127, 129),
+    # its last width and the block path's first (S = 255, 257), and S = 1201
+    if name.startswith("width_"):
+        s = int(name.split("_")[1])
+        return draw(2, s + 4, (s - 1) // 2, 300, llens=[(s - 1) // 2, (s - 1) // 4])
+    if name == "wider_than_a_block":  # S = 1201, infeasible at T = 40: a loss near 1e5
+        return draw(2, 40, 600, 50, llens=[600, 3])
+    # S = 12001: the block path's three shared rows need 144 KB. Both rows
+    # can be aligned: on a row that cannot, the gradient of the TPU formula
+    # (beta = term) is not the derivative of the plain recursion's loss
+    if name == "widest_rows":
+        return draw(2, 12, 6000, 50, lens=[12, 9], llens=[5, 7])
+    if name == "batch_of_five":
+        return draw(5, 30, 6, 20, lens=[30, 22, 30, 17, 9], llens=[6, 4, 5, 3, 2])
+    if name == "t_not_a_multiple_of_the_chunk":
+        return draw(4, 45, 10, 20, lens=[45, 45, 39, 33])
+    if name == "t_shorter_than_a_chunk":
+        return draw(3, 13, 4, 9)
+    if name == "zero_length_beside_full_length":
+        return draw(4, 40, 8, 15, lens=[40, 0, 40, 21], llens=[8, 3, 0, 5])
+    if name == "lengths_differ_per_row":
+        return draw(4, 50, 12, 30, lens=[50, 33, 41, 26], llens=[12, 7, 10, 3])
     raise KeyError(name)
 
 
 CTC_CASES = ["flagship", "longest_labels", "long_bucket", "mixed_lengths_and_repeats",
              "empty_label", "minimal_fit", "full_length", "blank_is_last_class",
-             "single_frame"]
+             "single_frame", "width_63", "width_65", "width_127", "width_129", "width_255",
+             "width_257", "wider_than_a_block", "widest_rows", "batch_of_five",
+             "t_not_a_multiple_of_the_chunk", "t_shorter_than_a_chunk",
+             "zero_length_beside_full_length", "lengths_differ_per_row"]
 CTC_TIMED = CTC_CASES[:3]
 
 
-def check_ctc(ctc_dp, name, gen):
-    """CTC kernels vs the plain recursion at one case: value, gradient at
-    ``logp_ext`` and at the logits; for the train shapes also the times."""
+# csrc/ctc_probe.cu's variants, in its order: each adds one part of a step
+CTC_LADDER = [
+    ("a", "row in registers, one warp a sequence, shuffles; lse3 + a log-prob in a register"),
+    ("a_fast", "(a) with __expf/__logf (not used by the port)"),
+    ("b", "row in shared memory, one thread a state, one __syncthreads() a step"),
+    ("c", "(b) + the log-prob loaded from device memory one step ahead"),
+    ("d", "(c) + the alpha row stored: the block kernels' step"),
+    ("a_store", "(a) + the alpha row stored to device memory every step (not staged)"),
+]
+
+
+def ctc_chain_ladder(build, b=TRAIN_BATCH, t=256, s=41, launches=5):
+    """Latency of one dependent step of the CTC recursion, variant by variant
+    (``csrc/ctc_probe.cu``), at the flagship's B and S: per launch the median
+    over blocks of the loop's %globaltimer ns and clock64 cycles over ``t``;
+    the median of ``launches`` launches after one warm-up; and, to check the
+    stamps, a launch's device time over ``t`` (which adds the launch)."""
+    import ctypes
+
+    lib = build.load("ctc_probe")
+    lib.ctc_probe_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.ctc_probe_launch.restype = ctypes.c_int
+    lib.ctc_probe_error_string.argtypes = [ctypes.c_int]
+    lib.ctc_probe_error_string.restype = ctypes.c_char_p
+    if lib.ctc_probe_variants() != len(CTC_LADDER):
+        raise AssertionError("ctc_probe.cu and CTC_LADDER disagree on the variants")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    logp = torch.log_softmax(torch.randn(b, t, s, device="cuda", generator=gen), -1)
+    out, alphas = torch.empty(b, s, device="cuda"), torch.empty(b, t, s, device="cuda")
+    ns, cycles = (torch.empty(b, dtype=torch.int64, device="cuda") for _ in range(2))
+    rows = {}
+    for variant, (name, what) in enumerate(CTC_LADDER):
+        per_launch = []
+        for _ in range(launches + 1):
+            rc = lib.ctc_probe_launch(variant, logp.data_ptr(), out.data_ptr(), alphas.data_ptr(),
+                                      ns.data_ptr(), cycles.data_ptr(), b, t, s,
+                                      torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"ctc_probe {name}: {lib.ctc_probe_error_string(rc).decode()}")
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"ctc_probe {name}: non-finite row")
+            per_launch.append((ns.double().median().item() / t / 1e3,
+                               cycles.double().median().item() / t))
+        per_launch = per_launch[1:]
+
+        def launch():
+            lib.ctc_probe_launch(variant, logp.data_ptr(), out.data_ptr(), alphas.data_ptr(),
+                                 ns.data_ptr(), cycles.data_ptr(), b, t, s,
+                                 torch.cuda.current_stream().cuda_stream)
+
+        # the stamps against the whole launch's device time over t
+        rows[name] = {"what": what, "us_per_step": statistics.median(p[0] for p in per_launch),
+                      "cycles_per_step": statistics.median(p[1] for p in per_launch),
+                      "launch_us_per_step": 1e3 * cuda_ms(launch, iters=5) / t}
+    for r in rows.values():
+        r["share_of_d"] = r["us_per_step"] / rows["d"]["us_per_step"]
+    return {"shape": [b, t, s], "variants": rows}
+
+
+def check_ctc(ctc_dp, name, gen, floor_us=None):
+    """CTC kernels vs the plain recursion at one case: value and gradient at
+    ``logp_ext`` and at the logits; for the train shapes also the times, the
+    byte bound and the chain floor (the longest length times ``floor_us``,
+    the ladder's least measured latency of one step: not a lower bound)."""
     import torch.nn.functional as F
 
     logits, lens, labels, llens, blank = ctc_case(name, gen)
@@ -365,15 +470,16 @@ def check_ctc(ctc_dp, name, gen):
     ok = (all(torch.isfinite(x).all() for x in (loss_k, grad_k, glogit_k))
           and errs["loss"] <= tol_value and errs["loss_at_logits"] <= tol_value
           and errs["grad_logp_ext"] <= tol_grad and errs["grad_logits"] <= tol_grad)
+    plan = ctc_dp.kernel_plan(b, t, s)
     result = {"case": name, "shape": [b, t, s, v], "max_abs_err": errs, "max_loss": peak,
-              "tol_value": tol_value, "tol_grad": tol_grad}
+              "tol_value": tol_value, "tol_grad": tol_grad, "plan": plan._asdict()}
     if not ok:
         raise AssertionError(f"ctc_dp {name}: kernels and plain version disagree: {result}")
     if name not in CTC_TIMED:
         return result
 
-    # times: each kernel alone in a CUDA graph; the plain pair and F.ctc_loss
-    # eagerly (forward, backward), each on the tensors it consumes
+    # times: each kernel alone in a CUDA graph; the plain pair eagerly
+    # (forward, backward); F.ctc_loss's device time, its lengths as CUDA tensors
     fwd_ms = cuda_ms(lambda: ctc_dp.ctc_dp_fwd(logp_ext, lens32, allowed8, llens32))
     bwd_ms = cuda_ms(lambda: ctc_dp.ctc_dp_bwd(logp_ext, alphas, lens32, allowed8, llens32,
                                                loss_k, g))
@@ -384,29 +490,30 @@ def check_ctc(ctc_dp, name, gen):
         torch.autograd.grad(loss, ref_in, g)
 
     log_probs = F.log_softmax(logits, -1).transpose(0, 1).contiguous().requires_grad_()
-    lens_host, llens_host = lens.tolist(), llens.tolist()
 
-    def library(mark):
-        loss = F.ctc_loss(log_probs, labels, lens_host, llens_host, blank=blank,
-                          reduction="none")
-        mark()
-        torch.autograd.grad(loss, log_probs, g)
+    def library():
+        return F.ctc_loss(log_probs, labels, lens, llens, blank=blank, reduction="none")
 
     plain_fwd, plain_bwd = event_ms(plain, iters=2, phases=2)
-    lib_fwd, lib_bwd = event_ms(library, iters=5, phases=2)
-    lib_loss = F.ctc_loss(log_probs, labels, lens_host, llens_host, blank=blank,
-                          reduction="none")
-    result["library_max_abs_err"] = (lib_loss - loss_k).abs().max().item()
+    lib_fwd = device_ms(library)
+    lib_bwd = device_ms(lambda: torch.autograd.grad(library(), log_probs, g)) - lib_fwd
+    result["library_max_abs_err"] = (library().detach() - loss_k).abs().max().item()
     if not result["library_max_abs_err"] <= tol_value:
         raise AssertionError(f"ctc_dp {name}: F.ctc_loss disagrees: {result}")
-    cells = b * t * s * 4
+    # bytes this run's data needs: log-probs (and, backward, alphas) are read
+    # at the valid frames only; alphas and gradients are written at every frame
+    cells, valid = b * t * s * 4, int(lens.clamp(0, t).sum().item()) * s * 4
+    steps = int(lens.max().item())
     result.update(
-        fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+        plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
         library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
-        # logp_ext read and alphas written; logp_ext and alphas read, grad written
-        fwd_bound_ms=1e3 * 2 * cells / H100_BYTES_PER_S,
-        bwd_bound_ms=1e3 * 3 * cells / H100_BYTES_PER_S,
-        chain_steps=t, fwd_us_per_step=1e3 * fwd_ms / t, bwd_us_per_step=1e3 * bwd_ms / t)
+        fwd_bound_ms=1e3 * (valid + cells) / H100_BYTES_PER_S,
+        bwd_bound_ms=1e3 * (2 * valid + cells) / H100_BYTES_PER_S,
+        chain_steps=steps, fwd_us_per_step=1e3 * fwd_ms / steps,
+        bwd_us_per_step=1e3 * bwd_ms / steps)
+    if floor_us is not None:  # both chains are one lse3 and one add a step
+        result["chain_floor_ms"] = steps * floor_us / 1e3
     return result
 
 
@@ -891,25 +998,36 @@ def main():
     del serving, gpu, cpu, model
     torch.cuda.empty_cache()
 
-    # 5. CTC kernels against the plain recursion
+    # 5. CTC: the chain's latency ladder, then the kernels against the plain
+    # recursion at every case, with the launch plan of each
+    ladder = ctc_chain_ladder(_build)
+    floor_us = ladder["variants"]["a"]["us_per_step"]
+    log(f"ctc chain ladder, B T S = {ladder['shape']} (csrc/ctc_probe.cu; median over blocks "
+        "and launches): variant | us per step | SM cycles per step | share of (d) | launch time "
+        "over T, us | what")
+    for name, r in ladder["variants"].items():
+        log(f"  ({name}) | {r['us_per_step']:.4f} | {r['cycles_per_step']:.1f} | "
+            f"{r['share_of_d']:.3f} | {r['launch_us_per_step']:.4f} | {r['what']}")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    log("ctc_dp vs plain: case [B T S V] | max abs err: loss, loss at logits, grad logp_ext, "
-        "grad logits | tol value, grad")
+    log("ctc_dp vs plain: case [B T S V] path k threads chunk | max abs err: loss, loss at "
+        "logits, grad logp_ext, grad logits | tol value, grad")
     ctc_results = {}
     for name in CTC_CASES:
-        r = ctc_results[name] = check_ctc(ctc_dp, name, gen)
-        e = r["max_abs_err"]
-        log(f"  {name} {r['shape']} | {e['loss']:.3e} {e['loss_at_logits']:.3e} "
-            f"{e['grad_logp_ext']:.3e} {e['grad_logits']:.3e} | {r['tol_value']:.3e} "
-            f"{r['tol_grad']:.3e}")
+        r = ctc_results[name] = check_ctc(ctc_dp, name, gen, floor_us)
+        e, p = r["max_abs_err"], r["plan"]
+        log(f"  {name} {r['shape']} {p['path']} {p['k']} {p['threads']} {p['chunk']} | "
+            f"{e['loss']:.3e} {e['loss_at_logits']:.3e} {e['grad_logp_ext']:.3e} "
+            f"{e['grad_logits']:.3e} | {r['tol_value']:.3e} {r['tol_grad']:.3e}")
     log("ctc_dp times (ms): case | kernel fwd, bwd (CUDA graph) | plain fwd, bwd (eager) | "
-        "F.ctc_loss fwd, bwd (eager) | bound fwd, bwd (bytes) | T steps, us per step fwd, bwd")
+        "F.ctc_loss fwd, bwd (device time) | bound fwd, bwd (bytes) | chain floor (steps x "
+        "ladder (a), measured) | steps, us per step fwd, bwd")
     for name in CTC_TIMED:
         r = ctc_results[name]
         log(f"  {name} | {r['fwd_ms']:.4f} {r['bwd_ms']:.4f} | {r['plain_fwd_ms']:.2f} "
             f"{r['plain_bwd_ms']:.2f} | {r['library_fwd_ms']:.4f} {r['library_bwd_ms']:.4f} | "
-            f"{r['fwd_bound_ms']:.5f} {r['bwd_bound_ms']:.5f} | {r['chain_steps']} "
-            f"{r['fwd_us_per_step']:.3f} {r['bwd_us_per_step']:.3f}; F.ctc_loss vs kernel "
+            f"{r['fwd_bound_ms']:.5f} {r['bwd_bound_ms']:.5f} | {r['chain_floor_ms']:.4f} | "
+            f"{r['chain_steps']} "
+            f"{r['fwd_us_per_step']:.4f} {r['bwd_us_per_step']:.4f}; F.ctc_loss vs kernel "
             f"max abs err {r['library_max_abs_err']:.3e}")
 
     # 6. fused log-mel kernel against its plain version, then its entry point
@@ -1019,8 +1137,10 @@ def main():
         "ms": flagship["fwd_ms"], "plain_ms": flagship["plain_fwd_ms"],
         "bound_ms": flagship["fwd_bound_ms"], "bound_by": "bytes",
         "library_ms": flagship["library_fwd_ms"], "shape": flagship["shape"],
-        "chain_steps": flagship["chain_steps"], "us_per_step": flagship["fwd_us_per_step"],
-        "card": card, "shapes": ctc_shapes,
+        "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
+        "us_per_step": flagship["fwd_us_per_step"], "floor_us_per_step": floor_us,
+        "plan": flagship["plan"],
+        "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -1029,8 +1149,8 @@ def main():
         "ms": flagship["bwd_ms"], "plain_ms": flagship["plain_bwd_ms"],
         "bound_ms": flagship["bwd_bound_ms"], "bound_by": "bytes",
         "library_ms": flagship["library_bwd_ms"], "shape": flagship["shape"],
-        "chain_steps": flagship["chain_steps"], "us_per_step": flagship["bwd_us_per_step"],
-        "card": card,
+        "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
+        "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us, "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",

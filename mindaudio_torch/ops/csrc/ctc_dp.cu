@@ -21,26 +21,54 @@
 // -1e5 (the masks are additive and gradients of infeasible rows must come
 // out finite), lse3 takes the max out, alpha_0 = [0, -1e5, ...] before the
 // first frame, frames at t >= len carry the previous row, beta = term at
-// t == len-1 and -1e5 beyond, and the backward carries w = logp + beta.
+// t == len-1, and the backward carries w = logp + beta. One departure: the
+// gradient at frames t >= len is 0, as the loss does not depend on them. The
+// TPU kernel's -exp(alpha - 1e5 + loss) there is not 0 where the loss itself
+// is near 1e5 (a row with no frames but with labels: -g/2 at state 0);
+// elsewhere it underflows to 0, so nothing else changes.
 //
 // What bounds it on the H100: not bytes (3 * B*T*S*4 bytes for the pair, a
-// microsecond at B=32, T=256, S=41) but the chain of T dependent steps. What
-// this design does about it: the whole T loop runs inside one launch, one
-// block per sequence and one thread per extended label (a strided loop when
-// S exceeds the block), the row in shared memory in two buffers so that a
-// step costs one __syncthreads(), and the next frame's log-probs (and alphas)
-// are loaded into registers before the barrier so that device-memory latency
-// overlaps the step. The TPU kernel's time-major layout, (8, 128) padding
-// and T-chunked grid are not carried over.
+// microsecond at B=32, T=256, S=41) but the chain of `len` dependent steps,
+// each a log-sum-exp of three neighbours of the previous row. The least
+// latency of one such step is measured by csrc/ctc_probe.cu; T times that
+// latency is a kernel's chain floor. What this design does about it:
+//
+// - One warp per sequence (S <= 32 * MAX_K). Lane `lane` holds the K states
+//   s = lane + 32*j in registers. The s-1 and s-2 neighbours come by warp
+//   shuffles of the same register; lanes 0 and 1 take them from register
+//   j-1 of lanes 31 and 30 (the backward: s+1, s+2 from register j+1 of
+//   lanes 0 and 1). No shared row, no block barrier on the chain. All K
+//   registers are shuffled before any lse3, so that their chains overlap.
+// - The log-probs (and, backward, the alphas) are copied a chunk of frames
+//   ahead by cp.async into a ring of STAGES slots in shared memory that only
+//   the warp's own lanes read, so a load's latency is paid once per chunk,
+//   off the chain, and a slot needs only __syncwarp().
+// - Alpha and gradient rows are written into the slot over the log-probs
+//   just read and leave for device memory once per chunk, coalesced; a step
+//   is one block of code without a branch (the backward takes each row's exp
+//   a step later, beside the next lse3).
+// - One sequence (one warp) a block: with b = blockIdx.x the compiler sees
+//   the control flow as uniform and puts no divergence checks before the
+//   shuffles (four sequences a block measured slower on the H100).
+//
+// Wider rows (S > 32 * MAX_K) take the block kernels, the port's first design
+// kept as it was but for the zero gradient past the length. The launch plan (ops/ctc_dp.py
+// `kernel_plan`: the path, K, the chunk, the threads and the shared memory of
+// a block) is chosen in Python and passed to the launchers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float LOG_EPS = -1e5f;
-constexpr int MAX_THREADS = 1024;
+constexpr int MAX_K = 8;  // registers per lane on the one-warp path: S <= 256
+constexpr int STAGES = 2;  // ring slots: chunk c+1 lands while chunk c is read
+constexpr int MAX_THREADS = 1024;  // a block on the block path
 constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -51,13 +79,275 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest `N` groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `n` contiguous floats from device memory into a ring slot, thread `i` of
+// `stride` copying elements i, i + stride, ...
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int i, int stride) {
+  for (int e = i; e < n; e += stride) cp_async4(dst + e, src + e);
+}
+
+// Frames [0, len) in chunks of `chunk`, forward: chunk c is frames
+// [c*chunk, c*chunk + n). Backward: chunk c ends where chunk c-1 began, at
+// len - c*chunk, so the walk from len-1 down to 0 meets whole chunks first
+// and the short one (if any) last.
+__device__ __forceinline__ int chunk_start(int c, int len, int chunk, bool reverse) {
+  return reverse ? max(len - (c + 1) * chunk, 0) : c * chunk;
+}
+
+__device__ __forceinline__ int chunk_frames(int c, int len, int chunk, bool reverse) {
+  return reverse ? len - c * chunk - chunk_start(c, len, chunk, true)
+                 : min(chunk, len - c * chunk);
+}
+
+// ---------------------------------------------------------------- one warp
+
+// shared memory: STAGES slots of chunk*S log-probs; each step
+// writes its alpha row over the log-probs it has read, and the chunk's rows
+// go out together when it ends (a store a step on the chain costs more than
+// the step's arithmetic)
+template <int K>
+__global__ void __launch_bounds__(32)
+ctc_fwd_warp_kernel(const float* __restrict__ logp, const int* __restrict__ lens,
+                    const int* __restrict__ llens, const uint8_t* __restrict__ allowed,
+                    float* __restrict__ alphas, float* __restrict__ loss, int T, int S,
+                    int chunk) {
+  extern __shared__ float ring[];
+  const int lane = threadIdx.x, b = blockIdx.x;
+  const int slot_size = chunk * S;
+  const int len = clampi(lens[b], 0, T);
+  const float* lp_seq = logp + (size_t)b * T * S;
+  float* al_seq = alphas + (size_t)b * T * S;
+  const int from1 = (lane + 31) & 31, from2 = (lane + 30) & 31;
+
+  float a[K], allow[K];
+  int at[K];  // the state's column in a frame; states past S use the last one
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = lane + 32 * j;
+    a[j] = s == 0 ? 0.f : LOG_EPS;
+    allow[j] = (s < S && allowed[(size_t)b * S + s]) ? 0.f : LOG_EPS;
+    at[j] = min(s, S - 1);
+  }
+
+  const int chunks = (len + chunk - 1) / chunk;
+  if (chunks > 0) stage(ring, lp_seq, chunk_frames(0, len, chunk, false) * S, lane, 32);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks)  // the next chunk into the other slot, read a chunk from now
+      stage(ring + ((c + 1) % STAGES) * slot_size, lp_seq + (size_t)(c + 1) * slot_size,
+            chunk_frames(c + 1, len, chunk, false) * S, lane, 32);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();  // every lane's copies of chunk c are in
+    float* slot = ring + (c % STAGES) * slot_size;
+    const int n = chunk_frames(c, len, chunk, false);
+    for (int k = 0; k < n; ++k) {  // one step, without a branch
+      // every register's neighbours first, so that the K lse3 chains overlap
+      float x1[K], x2[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        x1[j] = __shfl_sync(FULL, a[j], from1);
+        x2[j] = __shfl_sync(FULL, a[j], from2);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {  // lanes 0 and 1 take register j-1 of lanes 31 and 30
+        const int below = j > 0 ? j - 1 : 0;
+        const float p1 = lane >= 1 ? x1[j] : (j > 0 ? x1[below] : LOG_EPS);
+        const float p2 = lane >= 2 ? x2[j] : (j > 0 ? x2[below] : LOG_EPS);
+        a[j] = slot[k * S + at[j]] + lse3(a[j], p1, p2 + allow[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (lane + 32 * j < S) slot[k * S + lane + 32 * j] = a[j];
+    }
+    __syncwarp();
+    float* out = al_seq + (size_t)c * slot_size;
+    for (int e = lane; e < n * S; e += 32) out[e] = slot[e];
+    __syncwarp();  // every lane is done with slot c before chunk c+2 refills it
+  }
+  cp_async_wait<0>();
+
+  for (int t = len; t < T; ++t) {  // frames past the length carry the row
+    float* out = al_seq + (size_t)t * S;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (lane + 32 * j < S) out[lane + 32 * j] = a[j];
+  }
+
+  // the loss from states 2l and 2l-1 of the row at the last valid frame, read
+  // back through the idle ring: selecting a register by l2 would move the
+  // whole row to local memory
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (lane + 32 * j < S) ring[lane + 32 * j] = a[j];
+  __syncwarp();
+  if (lane == 0) {
+    const int l2 = 2 * clampi(llens[b], 0, (S - 1) / 2);
+    const float a2 = ring[l2];
+    float ll = a2;
+    if (l2 > 0) {
+      const float a1 = ring[l2 - 1];
+      ll = fmaxf(a2, a1) + log1pf(expf(-fabsf(a2 - a1)));
+    }
+    loss[b] = -ll;
+  }
+}
+
+// shared memory: STAGES slots of chunk*S log-probs then chunk*S alphas, and
+// 32 words (one a lane); each gradient row is written over the log-probs of
+// its frame, and the chunk's rows go out together when it ends. A row's exp
+// is taken in the next step, beside that step's lse3, and lanes without a
+// state store into the dump: the step stays one branch-free block of code.
+template <int K>
+__global__ void __launch_bounds__(32)
+ctc_bwd_warp_kernel(const float* __restrict__ logp, const float* __restrict__ alphas,
+                    const int* __restrict__ lens, const int* __restrict__ llens,
+                    const uint8_t* __restrict__ allowed, const float* __restrict__ loss,
+                    const float* __restrict__ g, float* __restrict__ grad, int T, int S,
+                    int chunk) {
+  extern __shared__ float ring[];
+  const int lane = threadIdx.x, b = blockIdx.x;
+  const int slot_size = chunk * S;
+  float* dump = ring + STAGES * 2 * slot_size + lane;
+  const int len = clampi(lens[b], 0, T);
+  const int l2 = 2 * clampi(llens[b], 0, (S - 1) / 2);
+  const float loss_b = loss[b], g_b = g[b];
+  const size_t base = (size_t)b * T * S;
+  const float* lp_seq = logp + base;
+  const float* al_seq = alphas + base;
+  float* gr_seq = grad + base;
+  const int from1 = (lane + 1) & 31, from2 = (lane + 2) & 31;
+
+  float w[K], allow2[K], term[K];  // w = logp + beta of the frame after this one
+  int at[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = lane + 32 * j;
+    w[j] = LOG_EPS;
+    allow2[j] = (s + 2 < S && allowed[(size_t)b * S + s + 2]) ? 0.f : LOG_EPS;
+    term[j] = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : LOG_EPS;
+    at[j] = min(s, S - 1);
+  }
+
+  // frames past the length: the loss does not depend on them
+  for (int t = len; t < T; ++t) {
+    float* out = gr_seq + (size_t)t * S;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (lane + 32 * j < S) out[lane + 32 * j] = 0.f;
+  }
+
+  const int chunks = (len + chunk - 1) / chunk;
+  auto fill = [&](int c) {
+    float* slot = ring + (c % STAGES) * 2 * slot_size;
+    const size_t from = (size_t)chunk_start(c, len, chunk, true) * S;
+    const int n = chunk_frames(c, len, chunk, true) * S;
+    stage(slot, lp_seq + from, n, lane, 32);
+    stage(slot + slot_size, al_seq + from, n, lane, 32);
+  };
+  if (chunks > 0) fill(0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) fill(c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    float* slot = ring + (c % STAGES) * 2 * slot_size;
+    const int t0 = chunk_start(c, len, chunk, true), n = chunk_frames(c, len, chunk, true);
+    float arg[K];  // alpha + beta + loss of the row before, not yet exponentiated
+    float* to[K];  // where its gradients go
+    float lp[K], al[K];  // frame t0 + k, read before the row before is stored
+    auto load = [&](int k) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        lp[j] = slot[k * S + at[j]];
+        al[j] = slot[slot_size + k * S + at[j]];
+      }
+    };
+    // with beta at frame t0 + k
+    auto finish = [&](int k, const float* beta) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        // states past S keep w = -1e5: they are the s+1, s+2 of the last states
+        const bool live = lane + 32 * j < S;
+        w[j] = live ? lp[j] + beta[j] : LOG_EPS;
+        arg[j] = al[j] + beta[j] + loss_b;
+        to[j] = live ? slot + k * S + lane + 32 * j : dump;
+      }
+    };
+    int k = n - 1;
+    if (c == 0) {  // the last valid frame: beta = term
+      load(k);
+      finish(k, term);
+      --k;
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        arg[j] = LOG_EPS;
+        to[j] = dump;
+      }
+    }
+    for (; k >= 0; --k) {  // one step, without a branch
+      float x1[K], x2[K], gr[K], beta[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        x1[j] = __shfl_sync(FULL, w[j], from1);
+        x2[j] = __shfl_sync(FULL, w[j], from2);
+      }
+      load(k);
+#pragma unroll
+      for (int j = 0; j < K; ++j) gr[j] = -expf(arg[j]) * g_b;  // off the chain
+#pragma unroll
+      for (int j = 0; j < K; ++j) {  // lanes 31 and 30 take register j+1 of lanes 0 and 1
+        const int above = j + 1 < K ? j + 1 : j;
+        const float q1 = lane <= 30 ? x1[j] : (j + 1 < K ? x1[above] : LOG_EPS);
+        const float q2 = lane <= 29 ? x2[j] : (j + 1 < K ? x2[above] : LOG_EPS);
+        beta[j] = lse3(w[j], q1, q2 + allow2[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) *to[j] = gr[j];  // the row before, its exp long done
+      finish(k, beta);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) *to[j] = -expf(arg[j]) * g_b;
+    __syncwarp();
+    float* out = gr_seq + (size_t)t0 * S;
+    for (int e = lane; e < n * S; e += 32) out[e] = slot[e];
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------- one block
+
+// Wide rows, the port's first design: one thread a state (a strided loop beyond
+// MAX_THREADS), the row in shared memory in two buffers so that a step costs
+// one __syncthreads(), the next frame's log-probs (and alphas) loaded into a
+// register one step ahead. Nothing is staged, so any row whose three shared
+// rows fit in 227 KB is taken.
+
 // shared memory: allow[S] | row0[S+2] | row1[S+2]; a row keeps two LOG_EPS
 // pads in front so that the s-1 and s-2 reads need no branch
-__global__ void ctc_fwd_kernel(const float* __restrict__ logp, const int* __restrict__ lens,
-                               const int* __restrict__ llens,
-                               const uint8_t* __restrict__ allowed,
-                               float* __restrict__ alphas, float* __restrict__ loss,
-                               int T, int S) {
+__global__ void ctc_fwd_block_kernel(const float* __restrict__ logp,
+                                     const int* __restrict__ lens,
+                                     const int* __restrict__ llens,
+                                     const uint8_t* __restrict__ allowed,
+                                     float* __restrict__ alphas, float* __restrict__ loss,
+                                     int T, int S) {
   extern __shared__ float smem[];
   float* allow = smem;
   float* prev = smem + S;
@@ -106,11 +396,14 @@ __global__ void ctc_fwd_kernel(const float* __restrict__ logp, const int* __rest
 
 // shared memory: allow2[S] | w0[S+2] | w1[S+2]; a row keeps two LOG_EPS pads
 // at the end for the s+1 and s+2 reads. allow2[s] is allowed(s+2).
-__global__ void ctc_bwd_kernel(const float* __restrict__ logp, const float* __restrict__ alphas,
-                               const int* __restrict__ lens, const int* __restrict__ llens,
-                               const uint8_t* __restrict__ allowed,
-                               const float* __restrict__ loss, const float* __restrict__ g,
-                               float* __restrict__ grad, int T, int S) {
+__global__ void ctc_bwd_block_kernel(const float* __restrict__ logp,
+                                     const float* __restrict__ alphas,
+                                     const int* __restrict__ lens,
+                                     const int* __restrict__ llens,
+                                     const uint8_t* __restrict__ allowed,
+                                     const float* __restrict__ loss,
+                                     const float* __restrict__ g, float* __restrict__ grad,
+                                     int T, int S) {
   extern __shared__ float smem[];
   float* allow2 = smem;
   float* wnext = smem + S;
@@ -129,7 +422,7 @@ __global__ void ctc_bwd_kernel(const float* __restrict__ logp, const float* __re
   __syncthreads();
 
   float lp_next = 0.f, al_next = 0.f;
-  if (tid < S && T > 0) {
+  if (tid < S) {
     lp_next = logp[base + (size_t)(T - 1) * S + tid];
     al_next = alphas[base + (size_t)(T - 1) * S + tid];
   }
@@ -149,7 +442,8 @@ __global__ void ctc_bwd_kernel(const float* __restrict__ logp, const float* __re
       const size_t at = base + (size_t)t * S + s;
       const float lp = s == tid ? lp_first : logp[at];
       const float al = s == tid ? al_first : alphas[at];
-      grad[at] = -expf(al + beta + loss_b) * g_b;
+      // frames past the length: the loss does not depend on them
+      grad[at] = t < len ? -expf(al + beta + loss_b) * g_b : 0.f;
       wcur[s] = lp + beta;
     }
     __syncthreads();
@@ -157,7 +451,7 @@ __global__ void ctc_bwd_kernel(const float* __restrict__ logp, const float* __re
   }
 }
 
-inline int block_threads(int S) { return min(MAX_THREADS, (S + 31) / 32 * 32); }
+// ---------------------------------------------------------------- launch
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -166,39 +460,99 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// k = ceil(S/32) <= MAX_K and one warp for the one-warp path; k = 0 and
+// whole warps up to a block for the block path
+bool plan_ok(int S, int k, int threads, int chunk) {
+  if (k == 0) return threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0;
+  return threads == 32 && chunk >= 1 && k <= MAX_K && k == (S + 31) / 32;
+}
+
+// f(integral_constant k) for k in 1..MAX_K
+template <typename F>
+cudaError_t with_k(int k, F f) {
+  switch (k) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Both launchers run on `stream`, never synchronise, and return
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). The plan (k, threads a block, chunk,
+// dynamic shared memory) comes from ops/ctc_dp.py `kernel_plan`, which owns
+// the shared-memory layout's size; k = 0 takes the block path.
 extern "C" int ctc_dp_fwd_launch(const void* logp, const void* lens, const void* llens,
-                                 const void* allowed, void* alphas, void* loss,
-                                 int B, int T, int S, void* stream) {
+                                 const void* allowed, void* alphas, void* loss, int B, int T,
+                                 int S, int k, int threads, int chunk, long long smem,
+                                 void* stream) {
   if (B <= 0) return 0;
-  if (T <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (3 * (size_t)S + 4) * sizeof(float);
-  cudaError_t err = allow_smem(ctc_fwd_kernel, smem);
+  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(S, k, threads, chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(logp);
+  const int* ln = static_cast<const int*>(lens);
+  const int* ll = static_cast<const int*>(llens);
+  const uint8_t* al = static_cast<const uint8_t*>(allowed);
+  float* out = static_cast<float*>(alphas);
+  float* ls = static_cast<float*>(loss);
+  cudaError_t err = cudaSuccess;
+  if (k == 0) {
+    err = allow_smem(ctc_fwd_block_kernel, smem);
+    if (err == cudaSuccess)
+      ctc_fwd_block_kernel<<<B, threads, smem, st>>>(lp, ln, ll, al, out, ls, T, S);
+  } else {
+    err = with_k(k, [&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      cudaError_t e = allow_smem(ctc_fwd_warp_kernel<K>, smem);
+      if (e == cudaSuccess)
+        ctc_fwd_warp_kernel<K><<<B, 32, smem, st>>>(lp, ln, ll, al, out, ls, T, S, chunk);
+      return e;
+    });
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  ctc_fwd_kernel<<<B, block_threads(S), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logp), static_cast<const int*>(lens),
-      static_cast<const int*>(llens), static_cast<const uint8_t*>(allowed),
-      static_cast<float*>(alphas), static_cast<float*>(loss), T, S);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ctc_dp_bwd_launch(const void* logp, const void* alphas, const void* lens,
                                  const void* llens, const void* allowed, const void* loss,
-                                 const void* g, void* grad, int B, int T, int S,
-                                 void* stream) {
+                                 const void* g, void* grad, int B, int T, int S, int k,
+                                 int threads, int chunk, long long smem, void* stream) {
   if (B <= 0) return 0;
-  if (T <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (3 * (size_t)S + 4) * sizeof(float);
-  cudaError_t err = allow_smem(ctc_bwd_kernel, smem);
+  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(S, k, threads, chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(logp);
+  const float* alph = static_cast<const float*>(alphas);
+  const int* ln = static_cast<const int*>(lens);
+  const int* ll = static_cast<const int*>(llens);
+  const uint8_t* al = static_cast<const uint8_t*>(allowed);
+  const float* ls = static_cast<const float*>(loss);
+  const float* gg = static_cast<const float*>(g);
+  float* out = static_cast<float*>(grad);
+  cudaError_t err = cudaSuccess;
+  if (k == 0) {
+    err = allow_smem(ctc_bwd_block_kernel, smem);
+    if (err == cudaSuccess)
+      ctc_bwd_block_kernel<<<B, threads, smem, st>>>(lp, alph, ln, ll, al, ls, gg, out, T, S);
+  } else {
+    err = with_k(k, [&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      cudaError_t e = allow_smem(ctc_bwd_warp_kernel<K>, smem);
+      if (e == cudaSuccess)
+        ctc_bwd_warp_kernel<K><<<B, 32, smem, st>>>(lp, alph, ln, ll, al, ls, gg, out, T, S,
+                                                    chunk);
+      return e;
+    });
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  ctc_bwd_kernel<<<B, block_threads(S), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logp), static_cast<const float*>(alphas),
-      static_cast<const int*>(lens), static_cast<const int*>(llens),
-      static_cast<const uint8_t*>(allowed), static_cast<const float*>(loss),
-      static_cast<const float*>(g), static_cast<float*>(grad), T, S);
   return static_cast<int>(cudaGetLastError());
 }
 

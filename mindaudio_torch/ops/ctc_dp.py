@@ -10,7 +10,10 @@ pair computes it::
     loss        = -LSE(alpha_{len-1}(2L), alpha_{len-1}(2L-1))
 
 On CUDA tensors the recursion and its reverse (beta) pass are the two kernels
-of ``csrc/ctc_dp.cu``, paired by a ``torch.autograd.Function``; beside them
+of ``csrc/ctc_dp.cu``, paired by a ``torch.autograd.Function``, launched as
+:func:`kernel_plan` lays them out (one warp a sequence with the row in
+registers, or one block a sequence for wide rows; the chunk of frames staged
+ahead in shared memory); beside them
 stands the plain PyTorch version (a Python loop over ``T`` on ``(B, S)``
 rows, differentiated by autograd), which CPU tensors and the tests use.
 Log-softmax and the gather ``logp[..., ext]`` stay outside the Function, so
@@ -19,11 +22,17 @@ autograd, as in the JAX package.
 
 "Minus infinity" is ``-1e5``: the masks are additive, and an infeasible pair
 (``T < L + repeats``) gives a finite loss near ``1e5`` with finite gradients.
+Those gradients are the kernel pair's formula, ``-exp(alpha + beta + loss)``
+with ``beta = 0`` only at the two final states: on such a row it also counts
+paths that end elsewhere (at one ``-1e5`` like the loss's own paths), so it
+differs from the plain version's autograd by a factor that depends on the
+data. On rows that can be aligned the two agree.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.nn import functional as F
@@ -37,9 +46,54 @@ __all__ = [
     "extended_log_probs",
     "ctc_per_seq_loss_reference",
     "ctc_per_seq_loss_kernel",
+    "kernel_plan",
 ]
 
 LOG_EPS = -1e5
+
+# the kernels' fixed shapes (csrc/ctc_dp.cu)
+MAX_K = 8             # states a lane holds on the one-warp path: S <= 32 * MAX_K
+STAGES = 2            # ring slots: chunk c+1 is copied while chunk c is read
+MAX_THREADS = 1024    # threads a block on the block path (a strided loop beyond)
+CHUNK = 32            # frames a chunk at most
+SMEM_LIMIT = 232448   # shared memory a block may use on the H100 (227 KB)
+
+
+class Plan(NamedTuple):
+    """How the kernel pair is launched for ``(B, T, S)``: ``B`` blocks."""
+    path: str        # "warp": one warp a sequence; "block": one block a sequence
+    k: int           # states a lane holds (the register row); 0 on the block path
+    threads: int     # a block's
+    chunk: int       # frames a ring slot holds; 1 on the block path (a register a step ahead)
+    fwd_smem: int    # dynamic shared memory a block, bytes
+    bwd_smem: int
+
+
+def kernel_plan(b, t, s):
+    """The launch plan of the kernel pair for ``logp_ext (b, t, s)``, or
+    ValueError where the kernels take none. The one place that sizes the
+    kernels' shared memory.
+
+    ``S <= 32 * MAX_K``: one warp a sequence, each lane holding ``k =
+    ceil(S/32)`` states, and a ring of ``STAGES`` slots of ``chunk =
+    min(CHUNK, T)`` frames of log-probs (backward: and of alphas, then one
+    word a lane). Wider rows: one block a sequence, one thread a state up to
+    1024, the skip mask and two rows in shared memory; a row whose three do
+    not fit in 227 KB is refused.
+    """
+    if b < 0 or t < 1 or s < 1 or s % 2 == 0:
+        raise ValueError(f"ctc_dp kernel: need B >= 0, T >= 1 and odd S = 2L+1, "
+                         f"got B={b}, T={t}, S={s}")
+    k = -(-s // 32)
+    if k <= MAX_K:
+        chunk = min(CHUNK, t)
+        ring = STAGES * chunk * s * 4
+        return Plan("warp", k, 32, chunk, ring, 2 * ring + 32 * 4)
+    smem = (3 * s + 4) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ctc_dp kernel: S={s} does not fit the skip mask and two rows in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return Plan("block", 0, min(MAX_THREADS, 32 * k), 1, smem, smem)
 
 
 def _lse3(a, b, c):
@@ -73,11 +127,10 @@ def ctc_dp_reference(logp_ext, logit_lengths, allowed, label_lengths):
 def _library():
     lib = _build.load("ctc_dp")
     if lib.ctc_dp_fwd_launch.argtypes is None:  # pointers must not be cut to 32 bits
-        lib.ctc_dp_fwd_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                                          + [ctypes.c_void_p])
+        plan = [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+        lib.ctc_dp_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + plan
         lib.ctc_dp_fwd_launch.restype = ctypes.c_int
-        lib.ctc_dp_bwd_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                                          + [ctypes.c_void_p])
+        lib.ctc_dp_bwd_launch.argtypes = [ctypes.c_void_p] * 8 + plan
         lib.ctc_dp_bwd_launch.restype = ctypes.c_int
         lib.ctc_dp_error_string.argtypes = [ctypes.c_int]
         lib.ctc_dp_error_string.restype = ctypes.c_char_p
@@ -115,6 +168,7 @@ def ctc_dp_fwd(logp_ext, logit_lengths, allowed, label_lengths):
     logp, lens, allow, llens = _check("ctc_dp_fwd", logp_ext, logit_lengths, allowed,
                                       label_lengths)
     b, t, s = logp.shape
+    plan = kernel_plan(b, t, s)
     alphas = torch.empty_like(logp)
     loss = torch.empty(b, dtype=torch.float32, device=logp.device)
     if b:
@@ -122,8 +176,8 @@ def ctc_dp_fwd(logp_ext, logit_lengths, allowed, label_lengths):
         with torch.cuda.device(logp.device):
             rc = lib.ctc_dp_fwd_launch(
                 logp.data_ptr(), lens.data_ptr(), llens.data_ptr(), allow.data_ptr(),
-                alphas.data_ptr(), loss.data_ptr(), b, t, s,
-                torch.cuda.current_stream(logp.device).cuda_stream)
+                alphas.data_ptr(), loss.data_ptr(), b, t, s, plan.k, plan.threads, plan.chunk,
+                plan.fwd_smem, torch.cuda.current_stream(logp.device).cuda_stream)
         _raise_on(rc, lib, "ctc_dp_fwd")
         ctc_dp_fwd.launches += 1
     return loss, alphas
@@ -138,6 +192,7 @@ def ctc_dp_bwd(logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g)
     logp, lens, allow, llens = _check("ctc_dp_bwd", logp_ext, logit_lengths, allowed,
                                       label_lengths)
     b, t, s = logp.shape
+    plan = kernel_plan(b, t, s)
     if alphas.shape != logp.shape or alphas.dtype != torch.float32:
         raise ValueError("ctc_dp_bwd: alphas must be float32 of logp_ext's shape")
     alphas = alphas.contiguous()
@@ -152,6 +207,7 @@ def ctc_dp_bwd(logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g)
             rc = lib.ctc_dp_bwd_launch(
                 logp.data_ptr(), alphas.data_ptr(), lens.data_ptr(), llens.data_ptr(),
                 allow.data_ptr(), loss.data_ptr(), g.data_ptr(), grad.data_ptr(), b, t, s,
+                plan.k, plan.threads, plan.chunk, plan.bwd_smem,
                 torch.cuda.current_stream(logp.device).cuda_stream)
         _raise_on(rc, lib, "ctc_dp_bwd")
         ctc_dp_bwd.launches += 1

@@ -1,0 +1,279 @@
+"""The CTC kernels' host side and layout, on the CPU.
+
+``kernel_plan`` (path, states a lane, threads, chunk, shared memory and its
+refusals) is pinned at the widths where the kernels change shape. The
+kernels' arithmetic cannot run here, so a numpy emulation walks the
+recursion as ``csrc/ctc_dp.cu`` lays it out: on the one-warp path each row
+is a ``(32, K)`` lane-by-register block (state ``s = lane + 32*j``) whose
+``s-1``/``s-2`` (backward ``s+1``/``s+2``) neighbours come by a rotation
+along the lanes, with the edge lanes taking register ``j-1`` (``j+1``)
+explicitly; on the block path a flat row with two pads. Log-probs (and
+alphas) are read from a ring of ``STAGES`` slots filled a chunk of frames
+ahead (the block path: one frame, a register a step ahead), forward and,
+backward, walking the chunks from the last valid frame down. The emulation is held against ``ctc_dp_reference`` (itself held
+against the JAX package by ``tests/test_torch_loss.py``) in value and in
+gradient, at the shapes of the card tests (``tests/test_torch_kernels.py``)
+with a small vocabulary.
+
+Tolerance: float32 on both sides, as on the card: 16 ulps of the largest
+loss for a value, 1.5 times that (the largest cotangent) for a gradient.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mindaudio_torch.ops import ctc_dp
+from test_torch_kernels import CTC_CASES
+
+torch.set_num_threads(1)
+
+F32 = np.float32
+LOG_EPS = F32(ctc_dp.LOG_EPS)
+LANES = 32
+
+
+@pytest.mark.parametrize("s,path,k,threads", [
+    (1, "warp", 1, 32), (3, "warp", 1, 32), (41, "warp", 2, 32), (61, "warp", 2, 32),
+    (63, "warp", 2, 32), (65, "warp", 3, 32), (255, "warp", 8, 32),
+    (257, "block", 0, 288), (1201, "block", 0, 1024), (12001, "block", 0, 1024),
+])
+def test_kernel_plan_at_the_edges(s, path, k, threads):
+    plan = ctc_dp.kernel_plan(32, 256, s)
+    assert (plan.path, plan.k, plan.threads) == (path, k, threads)
+    if k:  # a ring of chunks of log-probs; backward also alphas, and a word a lane
+        ring = ctc_dp.STAGES * ctc_dp.CHUNK * s * 4
+        assert (plan.chunk, plan.fwd_smem, plan.bwd_smem) == (ctc_dp.CHUNK, ring,
+                                                               2 * ring + 32 * 4)
+    else:  # the skip mask and two padded rows; the next frame a step ahead
+        assert (plan.chunk, plan.fwd_smem, plan.bwd_smem) == (1, (3 * s + 4) * 4,
+                                                               (3 * s + 4) * 4)
+    assert plan.bwd_smem <= ctc_dp.SMEM_LIMIT
+
+
+def test_kernel_plan_follows_t():
+    assert ctc_dp.kernel_plan(5, 13, 41).chunk == 13  # T shorter than a chunk
+    assert ctc_dp.kernel_plan(5, 45, 41).chunk == 32
+    assert ctc_dp.kernel_plan(5, 45, 41).fwd_smem == 2 * 32 * 41 * 4
+    assert ctc_dp.kernel_plan(0, 45, 41) == ctc_dp.kernel_plan(7, 45, 41)  # B plays no part
+    # the widest row whose skip mask and two rows fit in 227 KB
+    assert ctc_dp.kernel_plan(3, 9, 19369).bwd_smem <= ctc_dp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,t,s", [
+    (2, 9, 40),  # S = 2L+1 is odd
+    (2, 0, 41),
+    (2, 9, 0),
+    (-1, 9, 41),
+    (2, 9, 19371),  # the skip mask and two rows exceed 227 KB
+])
+def test_kernel_plan_refuses_what_the_kernels_do_not_take(b, t, s):
+    with pytest.raises(ValueError):
+        ctc_dp.kernel_plan(b, t, s)
+
+
+# ---------------------------------------------------------------- emulation
+
+
+def _lse3(a, b, c):
+    m = np.maximum(np.maximum(a, b), c)
+    return m + np.log(np.exp(a - m) + np.exp(b - m) + np.exp(c - m))
+
+
+def _chunk(c, length, chunk, reverse):
+    """Frames ``[start, start + n)`` of chunk ``c``, as ``chunk_start`` and
+    ``chunk_frames`` walk them."""
+    start = max(length - (c + 1) * chunk, 0) if reverse else c * chunk
+    end = length - c * chunk if reverse else min(length, (c + 1) * chunk)
+    return start, end - start
+
+
+class _Layout:
+    """A row of ``s`` states as the kernel holds it: ``(32, K)`` registers on
+    the one-warp path, a flat row on the block path."""
+
+    def __init__(self, s, plan):
+        self.s, self.warp = s, plan.path == "warp"
+        if self.warp:
+            k = plan.k
+            self.state = np.arange(LANES)[:, None] + LANES * np.arange(k)[None, :]
+        else:
+            self.state = np.arange(s)
+        self.valid = self.state < s
+        self.at = np.minimum(self.state, s - 1)  # gather index, clamped in the padding
+
+    def gather(self, row):
+        """``(s,)`` values in the layout; padding states read the last one."""
+        return row[self.at]
+
+    def flat(self, x):
+        """The layout's values back in state order, ``(s,)``."""
+        if self.warp:
+            return x.T.reshape(-1)[: self.s]
+        return x
+
+    def from_below(self, x, d):
+        """``out[s] = x[s-d]`` (``-1e5`` below state 0)."""
+        if not self.warp:
+            return np.concatenate([np.full(d, LOG_EPS, F32), x[:-d]]) if d < x.size else \
+                np.full_like(x, LOG_EPS)
+        r = np.roll(x, d, axis=0)  # __shfl_sync from lane - d: lanes < d wrap to lane 32 - d
+        out = r.copy()
+        out[:d, 1:] = r[:d, :-1]  # ... and take register j-1 there
+        out[:d, 0] = LOG_EPS
+        return out
+
+    def from_above(self, x, d):
+        """``out[s] = x[s+d]`` (padding beyond S holds ``-1e5``)."""
+        if not self.warp:
+            return np.concatenate([x[d:], np.full(d, LOG_EPS, F32)]) if d < x.size else \
+                np.full_like(x, LOG_EPS)
+        r = np.roll(x, -d, axis=0)  # from lane + d: lanes >= 32 - d wrap to lane d - 1
+        out = r.copy()
+        out[LANES - d:, :-1] = r[LANES - d:, 1:]  # ... and take register j+1 there
+        out[LANES - d:, -1] = LOG_EPS
+        return out
+
+
+def emulate(logp, lens, allowed, llens, g, plan):
+    """The kernel pair as laid out: ``(loss (B,), alphas, grad)``, float32 numpy."""
+    b, t, s = logp.shape
+    lay = _Layout(s, plan)
+    loss = np.empty(b, F32)
+    alphas = np.empty_like(logp)
+    grad = np.empty_like(logp)
+    slot_size = plan.chunk * s
+    for i in range(b):
+        length = int(np.clip(lens[i], 0, t))
+        allow_row = np.where(allowed[i], F32(0), LOG_EPS).astype(F32)
+        allow = np.where(lay.valid, lay.gather(allow_row), LOG_EPS)
+        chunks = -(-length // plan.chunk)
+
+        # forward: chunk c+1 is copied into the other slot while chunk c is read
+        ring = np.full((ctc_dp.STAGES, slot_size), np.nan, F32)
+        a = np.where(lay.state == 0, F32(0), LOG_EPS).astype(F32)
+
+        def fill_fwd(c):
+            start, n = _chunk(c, length, plan.chunk, False)
+            ring[c % ctc_dp.STAGES] = np.nan
+            ring[c % ctc_dp.STAGES, : n * s] = logp[i, start:start + n].reshape(-1)
+
+        if chunks:
+            fill_fwd(0)
+        for c in range(chunks):
+            if c + 1 < chunks:
+                fill_fwd(c + 1)
+            slot = ring[c % ctc_dp.STAGES]
+            start, n = _chunk(c, length, plan.chunk, False)
+            for k in range(n):
+                lp = np.where(lay.valid, lay.gather(slot[k * s:(k + 1) * s]), F32(0))
+                a = lp + _lse3(a, lay.from_below(a, 1), lay.from_below(a, 2) + allow)
+                alphas[i, start + k] = lay.flat(a)
+        alphas[i, length:] = lay.flat(a)
+        row = lay.flat(a)
+        l2 = 2 * int(np.clip(llens[i], 0, (s - 1) // 2))
+        ll = row[l2]
+        if l2 > 0:
+            a1 = row[l2 - 1]
+            ll = np.maximum(ll, a1) + np.log1p(np.exp(-np.abs(ll - a1)))
+        loss[i] = -ll
+
+        # backward: chunks walk down from the last valid frame, log-probs and
+        # alphas staged together
+        allow2_row = np.full(s, LOG_EPS, F32)
+        allow2_row[: s - 2] = allow_row[2:]
+        allow2 = np.where(lay.valid, lay.gather(allow2_row), LOG_EPS)
+        term = np.where((lay.state == l2) | ((lay.state == l2 - 1) & (l2 > 0)), F32(0),
+                        LOG_EPS).astype(F32)
+        grad[i, length:] = 0  # the loss does not depend on frames past the length
+        ring = np.full((ctc_dp.STAGES, 2, slot_size), np.nan, F32)
+        w = np.full(lay.state.shape, LOG_EPS, F32)
+
+        def fill_bwd(c):
+            start, n = _chunk(c, length, plan.chunk, True)
+            ring[c % ctc_dp.STAGES] = np.nan
+            ring[c % ctc_dp.STAGES, 0, : n * s] = logp[i, start:start + n].reshape(-1)
+            ring[c % ctc_dp.STAGES, 1, : n * s] = alphas[i, start:start + n].reshape(-1)
+
+        if chunks:
+            fill_bwd(0)
+        for c in range(chunks):
+            if c + 1 < chunks:
+                fill_bwd(c + 1)
+            slot = ring[c % ctc_dp.STAGES]
+            start, n = _chunk(c, length, plan.chunk, True)
+            for k in range(n - 1, -1, -1):
+                if start + k == length - 1:
+                    beta = term
+                else:
+                    beta = _lse3(w, lay.from_above(w, 1), lay.from_above(w, 2) + allow2)
+                lp = lay.gather(slot[0, k * s:(k + 1) * s])
+                al = lay.gather(slot[1, k * s:(k + 1) * s])
+                grad[i, start + k] = lay.flat(-np.exp(al + beta + loss[i]) * g[i])
+                w = np.where(lay.valid, lp + beta, LOG_EPS).astype(F32)
+    return loss, alphas, grad
+
+
+def _inputs(name):
+    """The card test's case, from numpy, with at most 50 classes."""
+    b, t, l, v, lens, llens, blank = CTC_CASES[name]
+    v = min(v, 50)
+    blank = min(blank, v - 1)
+    rng = np.random.default_rng(len(name))
+    logits = torch.from_numpy(rng.standard_normal((b, t, v)).astype(F32))
+    low, high = (1, v) if blank == 0 else (0, v - 1)
+    labels = torch.from_numpy(rng.integers(low, high, (b, l)))
+    labels[0, 1:3] = labels[0, 0]
+    lens = torch.tensor(lens or [t] * b)
+    llens = torch.tensor(llens or [l] * b)
+    g = torch.from_numpy((0.5 + rng.random(b)).astype(F32))
+    return logits, lens, labels, llens, blank, g
+
+
+@pytest.mark.parametrize("name", list(CTC_CASES))
+def test_emulated_layout_matches_the_reference(name):
+    logits, lens, labels, llens, blank, g = _inputs(name)
+    logp_ext, allowed = ctc_dp.extended_log_probs(logits, labels, blank)
+    b, t, s = logp_ext.shape
+    plan = ctc_dp.kernel_plan(b, t, s)
+    loss, _, grad = emulate(logp_ext.numpy(), lens.numpy(), allowed.numpy(), llens.numpy(),
+                            g.numpy(), plan)
+    x = logp_ext.clone().requires_grad_()
+    want = ctc_dp.ctc_dp_reference(x, lens, allowed, llens)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    assert np.isfinite(loss).all() and np.isfinite(grad).all()
+    tol = 16 * np.finfo(F32).eps * max(want.abs().max().item(), 1.0)
+    np.testing.assert_allclose(loss, want.detach().numpy(), rtol=0, atol=tol)
+    np.testing.assert_allclose(grad, want_grad.numpy(), rtol=0, atol=1.5 * max(tol, 1e-6))
+
+
+@pytest.mark.parametrize("s", [1, 3, 31, 33, 63, 65, 127, 129, 255])
+def test_emulated_register_exchange_is_a_shift(s):
+    """The rotations with the edge lanes' register exchange are exactly the
+    shifts of the row in state order, at every K the one-warp path takes."""
+    rng = np.random.default_rng(s)
+    lay = _Layout(s, ctc_dp.kernel_plan(1, 4, s))
+    row = rng.standard_normal(s).astype(F32)
+    x = np.where(lay.valid, lay.gather(row), LOG_EPS)
+    pad = np.full(2, LOG_EPS, F32)
+    for d in (1, 2):
+        below = np.concatenate([pad, row])[2 - d: 2 - d + s]
+        above = np.concatenate([row, pad])[d: d + s]
+        np.testing.assert_array_equal(lay.flat(lay.from_below(x, d)), below)
+        np.testing.assert_array_equal(lay.flat(lay.from_above(x, d)), above)
+
+
+@pytest.mark.parametrize("length,chunk", [(0, 32), (1, 1), (13, 13), (32, 32), (45, 32),
+                                          (249, 32), (752, 32)])
+def test_chunks_cover_the_valid_frames_once(length, chunk):
+    """``chunk_start``/``chunk_frames`` as the kernels walk them: forward
+    from frame 0, backward from the last valid frame, whole chunks first and
+    the short one last, every valid frame exactly once and no other."""
+    chunks = -(-length // chunk)
+    for reverse in (False, True):
+        spans = [_chunk(c, length, chunk, reverse) for c in range(chunks)]
+        assert all(1 <= n <= chunk for _, n in spans)
+        assert all(n == chunk for _, n in spans[:-1])
+        # backward, chunk c ends where chunk c-1 began
+        ordered = spans[::-1] if reverse else spans
+        assert [f for start, n in ordered for f in range(start, start + n)] == list(range(length))

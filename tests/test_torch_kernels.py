@@ -154,6 +154,19 @@ CTC_CASES = {
     "blank_is_last_class": (2, 19, 5, 9, [19, 12], [5, 3], 8),
     "single_frame_and_zero_length": (3, 1, 1, 5, [1, 1, 0], [1, 0, 0], 0),
     "wider_than_a_block": (2, 40, 600, 50, [40, 40], [600, 3], 0),
+    # S = 12001: the block path's three shared rows need 144 KB; both rows
+    # can be aligned (see ctc_dp.py on rows that cannot)
+    "widest_rows": (2, 12, 6000, 50, [12, 9], [5, 7], 0),
+    # the one-warp kernel's lane and register edges: S = 63, 65, 127, 129
+    "lane_edge_63": (3, 70, 31, 60, None, [31, 15, 8], 0),
+    "lane_edge_65": (3, 70, 32, 60, None, [32, 16, 9], 0),
+    "register_edge_127": (2, 131, 63, 90, None, [63, 30], 0),
+    "register_edge_129": (2, 133, 64, 90, None, [64, 31], 0),
+    "batch_of_five": (5, 30, 6, 20, [30, 22, 30, 17, 9], [6, 4, 5, 3, 2], 0),
+    "t_not_a_multiple_of_the_chunk": (4, 45, 10, 20, [45, 45, 39, 33], None, 0),
+    "t_shorter_than_a_chunk": (3, 13, 4, 9, None, None, 0),
+    "zero_length_beside_full_length": (4, 40, 8, 15, [40, 0, 40, 21], [8, 3, 0, 5], 0),
+    "lengths_differ_per_row": (4, 50, 12, 30, [50, 33, 41, 26], [12, 7, 10, 3], 0),
 }
 
 
