@@ -41,7 +41,8 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    repeated labels, an empty label, ``T = 2L+1``, full length, blank as the
    last class, one frame, S = 63/65/127/129 at the lane and register edges,
    S = 255/257 at the one-warp path's end, S = 1201 and 12001 on the block
-   path, B = 5, T not a multiple of the chunk and shorter than one, a zero
+   path, rows that cannot be aligned (a loss near 1e5) on both paths,
+   B = 5, T not a multiple of the chunk and shorter than one, a zero
    length beside a full one, lengths that differ per row), printing each
    case's launch plan; time forward and backward, the plain version and
    ``F.ctc_loss``'s device time (the yardstick, never called by the port),
@@ -67,7 +68,21 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    the plain CTC recursion is timed beside it;
 8. one deterministic float32 step (B=2) on the card with the CTC kernels
    against the CPU with the plain recursion; and a poisoned batch, which must
-   leave parameters and moments bit-equal and advance the step counter.
+   leave parameters and moments bit-equal and advance the step counter;
+9. the Conformer recipe (``mindaudio_torch/recipes/conformer``) as a user
+   runs it, at the full width and depth of ``conformer.yaml``: ``gen`` a
+   cipher corpus (256/64/32 utterances) into a temporary directory, CMVN
+   stats, ``train.main()`` for 40 steps at B=64 x 227 frames with a dev
+   evaluation and a save every 20, then ``main()`` again with
+   ``--train.resume true`` for 10 more (it must start at the last saved
+   global step with the schedule's learning rate there, and its checkpoint
+   must carry that name, step and AdamW count), the best-2 average held
+   against the mean of the two files, and ``predict.main()`` with
+   ``ctc_greedy`` and ``attention_rescoring``. Prints ms per step (host
+   clock, ten steps ending in the metrics' read-back), the dev losses, the
+   CERs (not judged after 50 steps) and the bytes of a checkpoint; the CTC
+   kernels must have launched once forward and once backward a train step
+   and once forward a dev batch.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -78,6 +93,7 @@ import collections
 import copy
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +115,8 @@ QUANT_MIN = 65536  # weight_quant_min_size, as the JAX package serves
 # the train bench: B=32, 10 s of audio in the 1027-frame bucket (T' = 256)
 TRAIN_BATCH, TRAIN_LABELS, TRAIN_SAMPLES, TRAIN_TRUE_SAMPLES = 32, 20, 1027 * 160 + 400, 160000
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, PLAIN_CTC_STEPS = 2, 10, 5
+# the recipe phase: train/dev/test utterances of the cipher corpus, B = 64
+RECIPE_UTTS, RECIPE_STEPS, RECIPE_RESUME_STEPS, RECIPE_SAVE_EVERY = (256, 64, 32), 40, 10, 20
 LOGMEL_BATCH, LOGMEL_SAMPLES, LOGMEL_CALLS = 128, 160000, 8  # the log-mel bench shape
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
 # q/k/v/out/pos, both pointwise convs), a decoder block 10 (two attentions'
@@ -331,11 +349,15 @@ def ctc_case(name, gen):
         return draw(2, s + 4, (s - 1) // 2, 300, llens=[(s - 1) // 2, (s - 1) // 4])
     if name == "wider_than_a_block":  # S = 1201, infeasible at T = 40: a loss near 1e5
         return draw(2, 40, 600, 50, llens=[600, 3])
-    # S = 12001: the block path's three shared rows need 144 KB. Both rows
-    # can be aligned: on a row that cannot, the gradient of the TPU formula
-    # (beta = term) is not the derivative of the plain recursion's loss
+    # S = 12001: the block path's three shared rows need 144 KB; 6000 labels
+    # in 12 frames cannot be aligned (a loss near 1e5)
     if name == "widest_rows":
-        return draw(2, 12, 6000, 50, lens=[12, 9], llens=[5, 7])
+        return draw(2, 12, 6000, 50, lens=[12, 9], llens=[6000, 7])
+    # rows that cannot be aligned (T < L + repeats) on both paths
+    if name == "unalignable_rows":
+        return draw(3, 6, 5, 7, lens=[6, 4, 2], llens=[5, 5, 3], repeats=[(0, 1), (0, 2)])
+    if name == "unalignable_wide_rows":  # S = 281
+        return draw(3, 16, 140, 20, lens=[16, 12, 6], llens=[140, 100, 20])
     if name == "batch_of_five":
         return draw(5, 30, 6, 20, lens=[30, 22, 30, 17, 9], llens=[6, 4, 5, 3, 2])
     if name == "t_not_a_multiple_of_the_chunk":
@@ -352,7 +374,8 @@ def ctc_case(name, gen):
 CTC_CASES = ["flagship", "longest_labels", "long_bucket", "mixed_lengths_and_repeats",
              "empty_label", "minimal_fit", "full_length", "blank_is_last_class",
              "single_frame", "width_63", "width_65", "width_127", "width_129", "width_255",
-             "width_257", "wider_than_a_block", "widest_rows", "batch_of_five",
+             "width_257", "wider_than_a_block", "widest_rows", "unalignable_rows",
+             "unalignable_wide_rows", "batch_of_five",
              "t_not_a_multiple_of_the_chunk", "t_shorter_than_a_chunk",
              "zero_length_beside_full_length", "lengths_differ_per_row"]
 CTC_TIMED = CTC_CASES[:3]
@@ -784,6 +807,122 @@ def card_against_cpu_step():
         raise AssertionError(f"card and CPU steps differ: {rel}")
 
 
+def recipe_phase(ctc_dp):
+    """Phase 9: the Conformer recipe (``mindaudio_torch/recipes/conformer``)
+    as a user runs it, at the full width and depth of ``conformer.yaml``, on
+    a small cipher corpus in a temporary directory: CMVN stats, training with
+    dev-scored checkpoints, a resumed run in the same process, a best-2
+    average and two decodes. Returns ``(ctc launches, summary)``."""
+    import tempfile
+
+    from mindaudio_torch.recipes.conformer import compute_cmvn_stats, convergence_run
+    from mindaudio_torch.recipes.conformer import predict as rpredict
+    from mindaudio_torch.recipes.conformer import train as rtrain
+    from mindaudio_torch.scheduler.schedules import asr_warmup_lr
+    from mindaudio_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
+        t = time.perf_counter()
+        convergence_run.gen(root, n_train=RECIPE_UTTS[0], n_dev=RECIPE_UTTS[1],
+                            n_test=RECIPE_UTTS[2])
+        gen_s = time.perf_counter() - t
+        ckpt_dir = f"{root}/ckpt"
+        # the convergence run's flags; batch_factor 0.67 puts 64 utterances in
+        # the 227-frame bucket (the run's 1.34 would put 128, more than the dev set)
+        extra = ["--data.batch_factor", "0.67", "--train.log_every_steps", "10",
+                 "--train.save_every_steps", str(RECIPE_SAVE_EVERY),
+                 "--train.keep_checkpoint_max", "4"]
+
+        def args(max_steps):
+            return convergence_run._args(root, max_steps) + extra
+
+        t = time.perf_counter()
+        compute_cmvn_stats.main(args(RECIPE_STEPS))
+        cmvn_s = time.perf_counter() - t
+        cfg, _ = rtrain.parse_args(args(RECIPE_STEPS))
+        schedule = asr_warmup_lr(cfg.optim.lr, cfg.optim.warmup_steps)
+
+        ctc_dp.ctc_dp_fwd.launches = ctc_dp.ctc_dp_bwd.launches = 0
+        t = time.perf_counter()
+        first = rtrain.main(args(RECIPE_STEPS))
+        train_s = time.perf_counter() - t
+        launches = (ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches)
+        saved = checkpoint.list_steps(ckpt_dir)
+        t = time.perf_counter()
+        second = rtrain.main(args(RECIPE_STEPS + RECIPE_RESUME_STEPS))
+        resume_s = time.perf_counter() - t
+        launches = (ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches,
+                    launches[0], launches[1])
+        steps = first["steps"] + second["steps"]
+        evals = len(first["dev_losses"]) + len(second["dev_losses"])
+        log(f"recipe: gen {sum(RECIPE_UTTS)} utterances {gen_s:.1f} s, CMVN {cmvn_s:.1f} s; "
+            f"train {first['steps']} steps {train_s:.1f} s, dev loss "
+            f"{first['dev_losses']}, steps saved {saved}; resumed at global step "
+            f"{second['start_step']} (lr {second['first_lr']:.6e}) for {second['steps']} "
+            f"steps {resume_s:.1f} s, dev loss {second['dev_losses']}, steps saved "
+            f"{checkpoint.list_steps(ckpt_dir)}")
+        log(f"recipe: ms per step (host clock, 10 steps ending in the metrics' read-back) "
+            f"{' / '.join(f'{v:.2f}' for v in first['window_ms'] + second['window_ms'])} at "
+            f"B=64 x 227 frames, full width and depth, bf16 autocast")
+        log(f"recipe: ctc_dp_fwd launches {launches[0]}, ctc_dp_bwd launches {launches[1]} "
+            f"over {steps} train steps and {evals} dev evaluations of one batch")
+        if launches[:2] != (steps + evals, steps) or launches[2:] != (
+                first["steps"] + len(first["dev_losses"]), first["steps"]):
+            raise AssertionError(f"recipe: CTC launches {launches}, expected one forward and "
+                                 f"one backward a train step, one forward a dev batch")
+        if (first["steps"], second["steps"]) != (RECIPE_STEPS, RECIPE_RESUME_STEPS):
+            raise AssertionError(f"recipe: ran {first['steps']} and {second['steps']} steps")
+        if second["start_step"] != RECIPE_STEPS or saved[-1] != RECIPE_STEPS:
+            raise AssertionError(f"recipe: resumed at {second['start_step']}, last save {saved}")
+        if abs(second["first_lr"] - float(schedule(RECIPE_STEPS))) > 1e-12:
+            raise AssertionError(f"recipe: the schedule did not continue: {second['first_lr']}")
+        final = checkpoint.restore_checkpoint(ckpt_dir)
+        if not (int(final["step"]) == int(final["opt_state"]["count"])
+                == RECIPE_STEPS + RECIPE_RESUME_STEPS == checkpoint.list_steps(ckpt_dir)[-1]):
+            raise AssertionError("recipe: the last checkpoint's step, count and name differ")
+        dev = list(first["dev_losses"].values()) + list(second["dev_losses"].values())
+        if not np.isfinite(dev).all():
+            raise AssertionError(f"recipe: a dev loss is not finite: {dev}")
+
+        # the best-2 average against the mean of the two files
+        best = rpredict.select_steps(ckpt_dir, 2)
+        avg = checkpoint.average_checkpoints(ckpt_dir, best)
+        a, b = (checkpoint.restore_checkpoint(ckpt_dir, s) for s in best)
+        worst = 0.0
+        for name, p in avg["params"].items():
+            mean = (a["params"][name].double() + b["params"][name].double()) / 2
+            worst = max(worst, (p.double() - mean).abs().max().item()
+                        / max(mean.abs().max().item(), 1e-30))
+        mu = next(iter(avg["opt_state"]["mu"].values()))
+        if not (worst <= 2.0**-24 and mu.dtype == torch.bfloat16
+                and torch.equal(avg["step"], b["step"])
+                and torch.equal(avg["rng"]["dropout"], b["rng"]["dropout"])):
+            raise AssertionError(f"recipe: the average of {best} is not the mean of the files "
+                                 f"(worst relative error {worst})")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{best[-1]}",
+                                                  checkpoint.STATE_FILE))
+        log(f"recipe: best-2 by dev loss {best}: average within {worst:.2e} of the files' "
+            f"float64 mean (relative), bf16 moments stay bf16, step and generators from step "
+            f"{best[-1]}; {ckpt_bytes} bytes a checkpoint")
+        del avg, a, b, final
+
+        cers = {}
+        for mode in ("ctc_greedy", "attention_rescoring"):
+            t = time.perf_counter()
+            cers[mode] = rpredict.main(args(0) + ["--decode.average_num", "2",
+                                                  "--decode.mode", mode])
+            log(f"recipe: decode {mode} of {RECIPE_UTTS[2]} test utterances, best-2 average: "
+                f"CER {100 * cers[mode]:.2f}% (after {steps} steps: not judged), "
+                f"{time.perf_counter() - t:.1f} s")
+            with open(f"{root}/result.txt", encoding="utf-8") as f:
+                lines = f.read().splitlines()
+            if len(lines) != RECIPE_UTTS[2] or not 0 <= cers[mode] < float("inf"):
+                raise AssertionError(f"recipe: decode {mode}: {len(lines)} lines, CER {cers[mode]}")
+    torch.cuda.empty_cache()
+    return launches, {"steps": steps, "window_ms": first["window_ms"] + second["window_ms"],
+                      "dev_losses": dev, "cer": cers, "checkpoint_bytes": ckpt_bytes}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1114,6 +1253,10 @@ def main():
     ctc_launches = train_phase(ctc_dp, flagship)
     card_against_cpu_step()
 
+    # 9. the recipe: manifest data, training with dev-scored checkpoints and a
+    # resume, a best-2 average, decoding
+    recipe_launches, recipe = recipe_phase(ctc_dp)
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -1139,7 +1282,7 @@ def main():
         "library_ms": flagship["library_fwd_ms"], "shape": flagship["shape"],
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["fwd_us_per_step"], "floor_us_per_step": floor_us,
-        "plan": flagship["plan"],
+        "plan": flagship["plan"], "recipe_launches": recipe_launches[0], "recipe": recipe,
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
@@ -1150,7 +1293,8 @@ def main():
         "bound_ms": flagship["bwd_bound_ms"], "bound_by": "bytes",
         "library_ms": flagship["library_bwd_ms"], "shape": flagship["shape"],
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
-        "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us, "card": card,
+        "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
+        "recipe_launches": recipe_launches[1], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",

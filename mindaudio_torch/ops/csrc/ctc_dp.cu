@@ -20,12 +20,20 @@
 // `_ctc_dp_fwd` (:208-216). The arithmetic is theirs: "minus infinity" is
 // -1e5 (the masks are additive and gradients of infeasible rows must come
 // out finite), lse3 takes the max out, alpha_0 = [0, -1e5, ...] before the
-// first frame, frames at t >= len carry the previous row, beta = term at
-// t == len-1, and the backward carries w = logp + beta. One departure: the
-// gradient at frames t >= len is 0, as the loss does not depend on them. The
-// TPU kernel's -exp(alpha - 1e5 + loss) there is not 0 where the loss itself
-// is near 1e5 (a row with no frames but with labels: -g/2 at state 0);
-// elsewhere it underflows to 0, so nothing else changes.
+// first frame, frames at t >= len carry the previous row, and the backward
+// carries w = logp + beta. Two departures, both in the backward, so that
+// its gradient is the derivative of the forward's loss:
+// - beta at t == len-1 is 0 at the two final states and minus infinity
+//   elsewhere (the TPU kernel: -1e5), as are the states past S, which do not
+//   exist; lse3_excl gives minus infinity, not NaN, where all three terms
+//   are. On a row that cannot be aligned (T < L + repeats) the loss is near
+//   1e5, and a -1e5 there also counted the paths that end elsewhere at the
+//   same weight as the loss's own; a state from which no final state can be
+//   reached now gets exactly 0.
+// - the gradient at frames t >= len is 0, as the loss does not depend on
+//   them. The TPU kernel's -exp(alpha - 1e5 + loss) there is not 0 where the
+//   loss itself is near 1e5 (a row with no frames but with labels: -g/2 at
+//   state 0).
 //
 // What bounds it on the H100: not bytes (3 * B*T*S*4 bytes for the pair, a
 // microsecond at B=32, T=256, S=41) but the chain of `len` dependent steps,
@@ -64,6 +72,7 @@
 namespace {
 
 constexpr float LOG_EPS = -1e5f;
+constexpr float NEG_INF = -__builtin_huge_valf();  // beta where no final state is reachable
 constexpr int MAX_K = 8;  // registers per lane on the one-warp path: S <= 256
 constexpr int STAGES = 2;  // ring slots: chunk c+1 lands while chunk c is read
 constexpr int MAX_THREADS = 1024;  // a block on the block path
@@ -73,6 +82,15 @@ constexpr unsigned FULL = 0xffffffffu;
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
   return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+}
+
+// lse3 for the backward, whose terms may all be minus infinity: the max is
+// taken out as at least -FLT_MAX, so that each exp is of -inf (0) and the
+// sum's log is -inf, not NaN; where any term is finite it is lse3 exactly
+__device__ __forceinline__ float lse3_excl(float a, float b, float c) {
+  const float m = fmaxf(fmaxf(a, b), c);
+  const float mm = fmaxf(m, -3.402823466e38f);
+  return m + logf(expf(a - mm) + expf(b - mm) + expf(c - mm));
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -237,9 +255,9 @@ ctc_bwd_warp_kernel(const float* __restrict__ logp, const float* __restrict__ al
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const int s = lane + 32 * j;
-    w[j] = LOG_EPS;
+    w[j] = NEG_INF;
     allow2[j] = (s + 2 < S && allowed[(size_t)b * S + s + 2]) ? 0.f : LOG_EPS;
-    term[j] = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : LOG_EPS;
+    term[j] = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : NEG_INF;
     at[j] = min(s, S - 1);
   }
 
@@ -282,9 +300,9 @@ ctc_bwd_warp_kernel(const float* __restrict__ logp, const float* __restrict__ al
     auto finish = [&](int k, const float* beta) {
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        // states past S keep w = -1e5: they are the s+1, s+2 of the last states
+        // states past S keep w = -inf: they are the s+1, s+2 of the last states
         const bool live = lane + 32 * j < S;
-        w[j] = live ? lp[j] + beta[j] : LOG_EPS;
+        w[j] = live ? lp[j] + beta[j] : NEG_INF;
         arg[j] = al[j] + beta[j] + loss_b;
         to[j] = live ? slot + k * S + lane + 32 * j : dump;
       }
@@ -314,9 +332,9 @@ ctc_bwd_warp_kernel(const float* __restrict__ logp, const float* __restrict__ al
 #pragma unroll
       for (int j = 0; j < K; ++j) {  // lanes 31 and 30 take register j+1 of lanes 0 and 1
         const int above = j + 1 < K ? j + 1 : j;
-        const float q1 = lane <= 30 ? x1[j] : (j + 1 < K ? x1[above] : LOG_EPS);
-        const float q2 = lane <= 29 ? x2[j] : (j + 1 < K ? x2[above] : LOG_EPS);
-        beta[j] = lse3(w[j], q1, q2 + allow2[j]);
+        const float q1 = lane <= 30 ? x1[j] : (j + 1 < K ? x1[above] : NEG_INF);
+        const float q2 = lane <= 29 ? x2[j] : (j + 1 < K ? x2[above] : NEG_INF);
+        beta[j] = lse3_excl(w[j], q1, q2 + allow2[j]);
       }
 #pragma unroll
       for (int j = 0; j < K; ++j) *to[j] = gr[j];  // the row before, its exp long done
@@ -394,7 +412,7 @@ __global__ void ctc_fwd_block_kernel(const float* __restrict__ logp,
   }
 }
 
-// shared memory: allow2[S] | w0[S+2] | w1[S+2]; a row keeps two LOG_EPS pads
+// shared memory: allow2[S] | w0[S+2] | w1[S+2]; a row keeps two -inf pads
 // at the end for the s+1 and s+2 reads. allow2[s] is allowed(s+2).
 __global__ void ctc_bwd_block_kernel(const float* __restrict__ logp,
                                      const float* __restrict__ alphas,
@@ -416,9 +434,9 @@ __global__ void ctc_bwd_block_kernel(const float* __restrict__ logp,
 
   for (int s = tid; s < S; s += stride) {
     allow2[s] = (s + 2 < S && allowed[(size_t)b * S + s + 2]) ? 0.f : LOG_EPS;
-    wnext[s] = LOG_EPS;
+    wnext[s] = NEG_INF;
   }
-  if (tid < 2) wnext[S + tid] = wcur[S + tid] = LOG_EPS;
+  if (tid < 2) wnext[S + tid] = wcur[S + tid] = NEG_INF;
   __syncthreads();
 
   float lp_next = 0.f, al_next = 0.f;
@@ -435,9 +453,9 @@ __global__ void ctc_bwd_block_kernel(const float* __restrict__ logp,
     for (int s = tid; s < S; s += stride) {
       float beta = LOG_EPS;
       if (t == len - 1) {
-        beta = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : LOG_EPS;
+        beta = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : NEG_INF;
       } else if (t < len - 1) {
-        beta = lse3(wnext[s], wnext[s + 1], wnext[s + 2] + allow2[s]);
+        beta = lse3_excl(wnext[s], wnext[s + 1], wnext[s + 2] + allow2[s]);
       }
       const size_t at = base + (size_t)t * S + s;
       const float lp = s == tid ? lp_first : logp[at];

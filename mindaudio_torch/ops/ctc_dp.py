@@ -22,11 +22,12 @@ autograd, as in the JAX package.
 
 "Minus infinity" is ``-1e5``: the masks are additive, and an infeasible pair
 (``T < L + repeats``) gives a finite loss near ``1e5`` with finite gradients.
-Those gradients are the kernel pair's formula, ``-exp(alpha + beta + loss)``
-with ``beta = 0`` only at the two final states: on such a row it also counts
-paths that end elsewhere (at one ``-1e5`` like the loss's own paths), so it
-differs from the plain version's autograd by a factor that depends on the
-data. On rows that can be aligned the two agree.
+The backward kernel's gradient is ``-exp(alpha + beta + loss)`` with beta
+starting at ``t = len-1`` from 0 at the two final states and a true minus
+infinity elsewhere (the TPU kernel's ``-1e5`` there would, on such a row,
+also count the paths that end elsewhere); so on every row it is the plain
+version's autograd gradient, and exactly 0 at states from which no final
+state can be reached.
 """
 
 from __future__ import annotations

@@ -49,7 +49,7 @@ def skip_nonfinite_update(optimizer, loss, grads):
 
 
 def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
-                    autocast_dtype=None):
+                    autocast_dtype=None, chunk_generator=None):
     """Build ``step(batch) -> metrics`` for ``model(batch) -> (loss, metrics)``.
 
     Args:
@@ -62,6 +62,9 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
         autocast_dtype: e.g. ``torch.bfloat16`` for the model's products
             (parameters and gradients stay float32); ``None`` computes in the
             parameters' dtype.
+        chunk_generator: passed to ``model(batch, chunk_generator=...)``: a
+            dynamic-chunk model samples its chunk masks from it (without
+            one it trains with full context).
 
     Returns:
         ``step``; its metrics (``loss``, the model's own, ``grad_norm``) are
@@ -79,7 +82,7 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
         autocast = (torch.autocast(device_type, dtype=autocast_dtype)
                     if autocast_dtype is not None else contextlib.nullcontext())
         with autocast:
-            loss, metrics = model(batch)
+            loss, metrics = model(batch, chunk_generator=chunk_generator)
         grads = list(torch.autograd.grad(loss, params, allow_unused=True,
                                          materialize_grads=True))
         metrics = {k: v.detach() for k, v in metrics.items()}

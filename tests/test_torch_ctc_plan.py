@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 
 F32 = np.float32
 LOG_EPS = F32(ctc_dp.LOG_EPS)
+NEG_INF = F32(-np.inf)
 LANES = 32
 
 
@@ -80,6 +81,16 @@ def _lse3(a, b, c):
     return m + np.log(np.exp(a - m) + np.exp(b - m) + np.exp(c - m))
 
 
+def _lse3_excl(a, b, c):
+    """The backward's ``lse3``: the max taken out as at least ``-FLT_MAX``,
+    so three minus infinities give minus infinity, not NaN; equal to
+    :func:`_lse3` wherever one argument is finite."""
+    m = np.maximum(np.maximum(a, b), c)
+    mm = np.maximum(m, F32(np.finfo(F32).min))
+    with np.errstate(divide="ignore"):
+        return m + np.log(np.exp(a - mm) + np.exp(b - mm) + np.exp(c - mm))
+
+
 def _chunk(c, length, chunk, reverse):
     """Frames ``[start, start + n)`` of chunk ``c``, as ``chunk_start`` and
     ``chunk_frames`` walk them."""
@@ -123,20 +134,27 @@ class _Layout:
         out[:d, 0] = LOG_EPS
         return out
 
-    def from_above(self, x, d):
-        """``out[s] = x[s+d]`` (padding beyond S holds ``-1e5``)."""
+    def from_above(self, x, d, pad=NEG_INF):
+        """``out[s] = x[s+d]`` (``pad`` beyond S: no state is there)."""
         if not self.warp:
-            return np.concatenate([x[d:], np.full(d, LOG_EPS, F32)]) if d < x.size else \
-                np.full_like(x, LOG_EPS)
+            return np.concatenate([x[d:], np.full(d, pad, F32)]) if d < x.size else \
+                np.full_like(x, pad)
         r = np.roll(x, -d, axis=0)  # from lane + d: lanes >= 32 - d wrap to lane d - 1
         out = r.copy()
         out[LANES - d:, :-1] = r[LANES - d:, 1:]  # ... and take register j+1 there
-        out[LANES - d:, -1] = LOG_EPS
+        out[LANES - d:, -1] = pad
         return out
 
 
-def emulate(logp, lens, allowed, llens, g, plan):
-    """The kernel pair as laid out: ``(loss (B,), alphas, grad)``, float32 numpy."""
+def emulate(logp, lens, allowed, llens, g, plan, excluded=NEG_INF):
+    """The kernel pair as laid out: ``(loss (B,), alphas, grad)``, float32 numpy.
+
+    ``excluded`` is what beta holds where no path to a final state exists:
+    at ``t = len-1`` every state but the final two, and the states past S.
+    The kernels hold minus infinity; ``excluded=LOG_EPS`` is the TPU
+    kernel's ``-1e5``, which on a row that cannot be aligned also counts
+    the paths that end elsewhere."""
+    lse3 = _lse3_excl if np.isneginf(excluded) else _lse3
     b, t, s = logp.shape
     lay = _Layout(s, plan)
     loss = np.empty(b, F32)
@@ -184,10 +202,10 @@ def emulate(logp, lens, allowed, llens, g, plan):
         allow2_row[: s - 2] = allow_row[2:]
         allow2 = np.where(lay.valid, lay.gather(allow2_row), LOG_EPS)
         term = np.where((lay.state == l2) | ((lay.state == l2 - 1) & (l2 > 0)), F32(0),
-                        LOG_EPS).astype(F32)
+                        excluded).astype(F32)
         grad[i, length:] = 0  # the loss does not depend on frames past the length
         ring = np.full((ctc_dp.STAGES, 2, slot_size), np.nan, F32)
-        w = np.full(lay.state.shape, LOG_EPS, F32)
+        w = np.full(lay.state.shape, excluded, F32)
 
         def fill_bwd(c):
             start, n = _chunk(c, length, plan.chunk, True)
@@ -206,11 +224,12 @@ def emulate(logp, lens, allowed, llens, g, plan):
                 if start + k == length - 1:
                     beta = term
                 else:
-                    beta = _lse3(w, lay.from_above(w, 1), lay.from_above(w, 2) + allow2)
+                    beta = lse3(w, lay.from_above(w, 1, excluded),
+                                lay.from_above(w, 2, excluded) + allow2)
                 lp = lay.gather(slot[0, k * s:(k + 1) * s])
                 al = lay.gather(slot[1, k * s:(k + 1) * s])
                 grad[i, start + k] = lay.flat(-np.exp(al + beta + loss[i]) * g[i])
-                w = np.where(lay.valid, lp + beta, LOG_EPS).astype(F32)
+                w = np.where(lay.valid, lp + beta, excluded).astype(F32)
     return loss, alphas, grad
 
 
@@ -247,6 +266,29 @@ def test_emulated_layout_matches_the_reference(name):
     np.testing.assert_allclose(grad, want_grad.numpy(), rtol=0, atol=1.5 * max(tol, 1e-6))
 
 
+@pytest.mark.parametrize("name", ["unalignable_rows", "unalignable_beside_alignable",
+                                  "unalignable_wide_rows"])
+def test_a_finite_beta_start_misses_rows_that_cannot_be_aligned(name):
+    """Why beta starts at minus infinity off the final states: with the TPU
+    kernel's -1e5 there, the gradient on a row that cannot be aligned (a loss
+    near 1e5) also counts the paths that end elsewhere, and these cases see
+    it (one-warp and block paths). The loss is the forward's, unchanged."""
+    logits, lens, labels, llens, blank, g = _inputs(name)
+    logp_ext, allowed = ctc_dp.extended_log_probs(logits, labels, blank)
+    plan = ctc_dp.kernel_plan(*logp_ext.shape)
+    args = (logp_ext.numpy(), lens.numpy(), allowed.numpy(), llens.numpy(), g.numpy(), plan)
+    loss, _, grad = emulate(*args)
+    loss_tpu, _, grad_tpu = emulate(*args, excluded=LOG_EPS)
+    x = logp_ext.clone().requires_grad_()
+    want = ctc_dp.ctc_dp_reference(x, lens, allowed, llens)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    assert want.max().item() > 9e4  # a row cannot be aligned
+    np.testing.assert_array_equal(loss_tpu, loss)
+    tol_grad = 1.5 * 16 * np.finfo(F32).eps * want.abs().max().item()
+    assert np.abs(grad - want_grad.numpy()).max() <= tol_grad
+    assert np.abs(grad_tpu - want_grad.numpy()).max() > tol_grad
+
+
 @pytest.mark.parametrize("s", [1, 3, 31, 33, 63, 65, 127, 129, 255])
 def test_emulated_register_exchange_is_a_shift(s):
     """The rotations with the edge lanes' register exchange are exactly the
@@ -254,13 +296,15 @@ def test_emulated_register_exchange_is_a_shift(s):
     rng = np.random.default_rng(s)
     lay = _Layout(s, ctc_dp.kernel_plan(1, 4, s))
     row = rng.standard_normal(s).astype(F32)
+    # forward rows pad with -1e5, backward rows (w) with minus infinity
     x = np.where(lay.valid, lay.gather(row), LOG_EPS)
-    pad = np.full(2, LOG_EPS, F32)
+    w = np.where(lay.valid, lay.gather(row), NEG_INF)
+    pad, none = np.full(2, LOG_EPS, F32), np.full(2, NEG_INF, F32)
     for d in (1, 2):
         below = np.concatenate([pad, row])[2 - d: 2 - d + s]
-        above = np.concatenate([row, pad])[d: d + s]
+        above = np.concatenate([row, none])[d: d + s]
         np.testing.assert_array_equal(lay.flat(lay.from_below(x, d)), below)
-        np.testing.assert_array_equal(lay.flat(lay.from_above(x, d)), above)
+        np.testing.assert_array_equal(lay.flat(lay.from_above(w, d)), above)
 
 
 @pytest.mark.parametrize("length,chunk", [(0, 32), (1, 1), (13, 13), (32, 32), (45, 32),

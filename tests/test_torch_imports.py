@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``mindaudio_torch/`` (nor
-``chip_smoke.py``) imports JAX, its libraries or the JAX package, and
-importing the port needs neither CUDA nor nvcc."""
+"""The port stands alone: no file of ``mindaudio_torch/`` (its recipes
+included, nor ``chip_smoke.py``) imports JAX, its libraries, the JAX package
+or a module of ``examples/``, and importing the port needs neither CUDA nor
+nvcc."""
 
 import ast
 import importlib
@@ -10,7 +11,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mindaudio_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mindaudio_tpu", "examples"}
+# the JAX recipes' top-level modules (``examples/*/*.py``), importable by name
+# once their directory is on sys.path
+FORBIDDEN |= {p.stem for p in (ROOT / "examples").glob("*/*.py")}
 PORT_FILES = sorted((ROOT / "mindaudio_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -40,6 +44,13 @@ def test_scan_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom flax import linen\nimportlib.import_module('jax.numpy')\n")
     assert _imported_roots(f) & FORBIDDEN == {"flax", "jax"}
+
+
+def test_the_recipes_are_scanned():
+    recipes = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if "recipes" in p.parts}
+    assert {f"mindaudio_torch/recipes/conformer/{m}.py" for m in (
+        "dataset", "train", "predict", "compute_cmvn_stats", "convergence_run")} <= recipes
+    assert {"dataset", "train", "predict", "examples"} <= FORBIDDEN
 
 
 def test_every_module_imports_without_cuda():

@@ -154,9 +154,14 @@ CTC_CASES = {
     "blank_is_last_class": (2, 19, 5, 9, [19, 12], [5, 3], 8),
     "single_frame_and_zero_length": (3, 1, 1, 5, [1, 1, 0], [1, 0, 0], 0),
     "wider_than_a_block": (2, 40, 600, 50, [40, 40], [600, 3], 0),
-    # S = 12001: the block path's three shared rows need 144 KB; both rows
-    # can be aligned (see ctc_dp.py on rows that cannot)
-    "widest_rows": (2, 12, 6000, 50, [12, 9], [5, 7], 0),
+    # S = 12001: the block path's three shared rows need 144 KB; 6000 labels
+    # in 12 frames cannot be aligned (a loss near 1e5)
+    "widest_rows": (2, 12, 6000, 50, [12, 9], [6000, 7], 0),
+    # rows that cannot be aligned (T < L + repeats) on the one-warp path:
+    # two repeats in row 0, more labels than frames in rows 1 and 2
+    "unalignable_rows": (3, 6, 5, 7, [6, 4, 2], [5, 5, 3], 0),
+    "unalignable_beside_alignable": (4, 10, 12, 9, [10, 8, 10, 3], [12, 9, 4, 6], 0),
+    "unalignable_wide_rows": (3, 16, 140, 20, [16, 12, 6], [140, 100, 20], 0),  # S = 281
     # the one-warp kernel's lane and register edges: S = 63, 65, 127, 129
     "lane_edge_63": (3, 70, 31, 60, None, [31, 15, 8], 0),
     "lane_edge_65": (3, 70, 32, 60, None, [32, 16, 9], 0),
