@@ -28,9 +28,14 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    ``kaldi_fbank``, ``ctc_greedy_search`` and ``attention_rescoring_batch``
    (beam 10, 50 tokens). The launch count of the int8 kernel in that run
    must equal the count of quantized layers on the path, and that of its
-   split-K sum pass the count of those whose K is split. Then one request
-   (B=1, float32 model) is held against the same weights on the CPU through
-   the plain versions;
+   split-K sum pass the count of those whose K is split. The native
+   prefix-beam DP that rescoring runs (``mindaudio_torch/_native``, built
+   with ``g++``) is held against the Python DP and both are timed, on the
+   served batch's own top-k and on the float32 model's: every row must be
+   equal (prefixes, and scores within 1e-4), rows whose top-k holds an exact
+   tie (bf16 logits) included and counted. Then one request (B=1, float32
+   model) is held against the same weights on the CPU through the plain
+   versions;
 5. run the CTC chain-latency ladder (``csrc/ctc_probe.cu``: the least
    latency of one dependent step of the recursion, then what shared memory
    and a barrier, a log-prob load one step ahead and a store of the row each
@@ -78,11 +83,25 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    global step with the schedule's learning rate there, and its checkpoint
    must carry that name, step and AdamW count), the best-2 average held
    against the mean of the two files, and ``predict.main()`` with
-   ``ctc_greedy`` and ``attention_rescoring``. Prints ms per step (host
-   clock, ten steps ending in the metrics' read-back), the dev losses, the
-   CERs (not judged after 50 steps) and the bytes of a checkpoint; the CTC
-   kernels must have launched once forward and once backward a train step
-   and once forward a dev batch.
+   ``ctc_greedy`` and ``attention_rescoring``; then 5 steps of the
+   streaming-ready model (causal conv, sampled chunk masks) into a
+   checkpoint directory of its own, decoded with ``streaming``. Prints ms per
+   step (host clock, ten steps ending in the metrics' read-back), the dev
+   losses, the CERs (not judged this early) and the bytes of a checkpoint;
+   the CTC kernels must have launched once forward and once backward a train
+   step and once forward a dev batch in the first two runs;
+10. streaming decode: the 16 served utterances through
+   ``ASRInference.streaming_ctc_greedy`` on the flagship with a causal conv
+   (seeded weights, int8 weights, bf16 compute), in chunks of 16
+   subsampled frames (67 raw frames stepping 64, ``predict.stream_chunks``),
+   at cache cap 128 and with the whole history. Prints the latency of a
+   chunk (median, p90, max; host clock, each ending in the read-back of its
+   tokens) and the real-time factor; the int8 kernel must launch 134 times a
+   chunk, and every GEMM shape the streams met (M = 16, the last partial
+   chunks, ``linear_pos`` at M = cache + chunk) is held against the plain
+   version and timed as in phase 3. In float32 the whole-history stream's
+   log-probs must agree with the chunk-masked full encode of the same model
+   within 1e-4, and with int8 weights under phase 4's rule.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -117,7 +136,10 @@ TRAIN_BATCH, TRAIN_LABELS, TRAIN_SAMPLES, TRAIN_TRUE_SAMPLES = 32, 20, 1027 * 16
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, PLAIN_CTC_STEPS = 2, 10, 5
 # the recipe phase: train/dev/test utterances of the cipher corpus, B = 64
 RECIPE_UTTS, RECIPE_STEPS, RECIPE_RESUME_STEPS, RECIPE_SAVE_EVERY = (256, 64, 32), 40, 10, 20
+RECIPE_STREAM_STEPS = 5  # the causal-conv model that the streaming decode reads
 LOGMEL_BATCH, LOGMEL_SAMPLES, LOGMEL_CALLS = 128, 160000, 8  # the log-mel bench shape
+# streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
+STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
 # q/k/v/out/pos, both pointwise convs), a decoder block 10 (two attentions'
 # q/k/v/out and the FFN), plus embed.out, ctc_proj and output_layer
@@ -807,12 +829,217 @@ def card_against_cpu_step():
         raise AssertionError(f"card and CPU steps differ: {rel}")
 
 
+def same_dp_results(native, python, rows, tol=1e-4):
+    """Raise unless the native prefix-beam DP's hypotheses equal the Python
+    DP's at ``rows``: equal prefixes in equal order, scores within ``tol``
+    plus one float32 ulp of the score (the native DP rounds its float64 sum
+    to float32). Returns the largest score difference and the number of
+    scores equal to the Python DP's rounded to float32, of how many."""
+    worst, same, count = 0.0, 0, 0
+    for row in rows:
+        got, want = native[row], python[row]
+        if [p for p, _ in got] != [p for p, _ in want]:
+            raise AssertionError(f"native DP row {row}: prefixes differ: {got[:2]} vs {want[:2]}")
+        for (_, gs), (_, ws) in zip(got, want):
+            worst = max(worst, abs(gs - ws))
+            same, count = same + (gs == float(np.float32(ws))), count + 1
+            if not abs(gs - ws) <= tol + float(np.spacing(np.float32(abs(ws)))):
+                raise AssertionError(f"native DP row {row}: score {gs} vs {ws}")
+    return worst, same, count
+
+
+def dp_check(name, model, feats, lens):
+    """Both prefix-beam DPs on ``model``'s top-k of the batch (beam ``BEAM``,
+    the served decode's), timed on the host clock. The native DP follows the
+    Python DP's arithmetic and tie order, so every row must be equal
+    (:func:`same_dp_results`), rows whose top-k holds an exact tie in some
+    valid frame (counted) included."""
+    from mindaudio_torch import _native
+    from mindaudio_torch.utils.recognize import ctc_prefix_beam_dp
+
+    with torch.inference_mode():
+        enc_out, enc_mask = model.encode(feats, lens)
+        top_logp, top_idx = model.ctc_log_probs(enc_out).topk(BEAM, dim=-1)
+        valid = enc_mask[:, 0].sum(-1).cpu().numpy()
+    top_logp, top_idx = top_logp.cpu().numpy(), top_idx.cpu().numpy()
+
+    t = time.perf_counter()
+    native = _native.ctc_prefix_beam_batch(top_logp, top_idx, valid, BEAM)
+    native_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    python = [ctc_prefix_beam_dp(top_logp[b], top_idx[b], int(valid[b]), BEAM)
+              for b in range(len(valid))]
+    python_ms = 1e3 * (time.perf_counter() - t)
+    tied = sum(any(len(set(top_logp[b, t].tolist())) < BEAM for t in range(int(valid[b])))
+               for b in range(len(valid)))
+    worst, same, count = same_dp_results(native, python, range(len(valid)))
+    log(f"prefix-beam DP on {name} top-k {tuple(top_logp.shape)}: native {native_ms:.2f} ms, "
+        f"Python {python_ms:.1f} ms ({python_ms / native_ms:.0f}x); all {len(valid)} rows "
+        f"equal (largest score difference {worst:.3e}, tol 1e-4 + a float32 ulp; {same} of "
+        f"{count} scores the Python DP's rounded to float32), {tied} of them with an exact "
+        f"tie in their top-k")
+    return {"top_k": list(top_logp.shape), "native_ms": native_ms, "python_ms": python_ms,
+            "rows_with_tied_top_k": tied, "rows_equal": len(valid), "max_score_diff": worst,
+            "scores_bit_equal": same, "scores": count}
+
+
+def streamed_log_probs(model, chunks, cap):
+    """The CTC log-probs of one utterance's stream, chunk by chunk through
+    ``encode_chunk``, concatenated."""
+    att = cnn = None
+    out = []
+    for chunk in chunks:
+        lp, att, cnn = model.encode_chunk(chunk, att, cnn, cap)
+        out.append(lp)
+    return torch.cat(out, dim=1)
+
+
+def streaming_phase(quant, wav_np, frames):
+    """Phase 10: streaming decode of the served utterances on a causal-conv
+    flagship (seeded weights), chunks of ``STREAM_CHUNK`` subsampled frames
+    (``predict.stream_chunks``), int8 weights and bf16 compute, at cap
+    ``STREAM_CAP`` and with the whole history. Returns a summary and the
+    int8 GEMM results at the shapes the stream met."""
+    from mindaudio_torch.models.asr_model import ASRModel
+    from mindaudio_torch.ops.spectral import kaldi_fbank
+    from mindaudio_torch.recipes.conformer.predict import stream_chunks
+    from mindaudio_torch.utils.recognize import ASRInference
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = ASRModel(VOCAB, input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS, ffn_dim=FFN,
+                     num_encoder_layers=ENC_LAYERS, num_decoder_layers=DEC_LAYERS,
+                     kernel_size=CONV_KERNEL, causal_conv=True, use_dynamic_chunk=True,
+                     device="cuda").reset_parameters(gen).eval()
+    serving = ASRInference(model, weight_quant="int8", weight_quant_min_size=QUANT_MIN,
+                           dtype=torch.bfloat16)
+    with torch.inference_mode():
+        feats = kaldi_fbank(torch.from_numpy(wav_np).cuda(), num_mel_bins=N_MELS, device="cuda")
+    utts = [feats[i:i + 1, : int(frames[i])] for i in range(len(frames))]
+    streams = [stream_chunks(u, u.shape[1], STREAM_CHUNK) for u in utts]
+    n_chunks = sum(len(c) for c in streams)
+    audio_s = float(sum((int(n) - 1) * 160 + 400 for n in frames)) / SAMPLE_RATE
+
+    def timed(chunks, times):
+        # streaming_ctc_greedy reads a chunk's tokens back (a synchronise)
+        # before it asks for the next: the host time between two asks is
+        # one chunk's
+        for chunk in chunks:
+            t = time.perf_counter()
+            yield chunk
+            times.append(time.perf_counter() - t)
+
+    serving.streaming_ctc_greedy(streams[0], required_cache_size=STREAM_CAP)  # warm-up
+    shapes = collections.Counter()
+    hooks = count_gemm_shapes(serving.model, quant, shapes)
+    runs = {}
+    for cap in (STREAM_CAP, -1):
+        quant.int8_matmul.launches = quant.int8_matmul.reduce_launches = 0
+        times, hyps = [], []
+        t = time.perf_counter()
+        for chunks in streams:
+            hyps.append(serving.streaming_ctc_greedy(timed(chunks, times),
+                                                     required_cache_size=cap))
+        total = time.perf_counter() - t
+        runs[cap] = {"launches": quant.int8_matmul.launches,
+                     "reduce_launches": quant.int8_matmul.reduce_launches,
+                     "chunks": len(times), "chunk_ms_median": 1e3 * statistics.median(times),
+                     "chunk_ms_p90": 1e3 * float(np.percentile(times, 90)),
+                     "chunk_ms_max": 1e3 * max(times), "seconds": total,
+                     "rtf": total / audio_s, "hyp_lens": [len(h) for h in hyps]}
+        r = runs[cap]
+        log(f"stream, cap {cap}: {r['chunks']} chunks of {STREAM_CHUNK} frames over {len(utts)} "
+            f"utterances ({audio_s:.1f} s of audio): per chunk {r['chunk_ms_median']:.2f} ms "
+            f"median, {r['chunk_ms_p90']:.2f} p90, {r['chunk_ms_max']:.2f} max (host clock, "
+            f"each ending in the read-back of its tokens); {total:.3f} s in all, real-time "
+            f"factor {r['rtf']:.4f}; int8_matmul launches {r['launches']} "
+            f"({r['launches'] / r['chunks']:.1f} a chunk, expected {ENCODE_LAUNCHES}), split-K "
+            f"sum passes {r['reduce_launches']}; hypothesis lengths {r['hyp_lens']}")
+        if r["chunks"] != n_chunks or r["launches"] != ENCODE_LAUNCHES * n_chunks:
+            raise AssertionError(f"stream, cap {cap}: {r['launches']} int8 launches over "
+                                 f"{r['chunks']} chunks, expected {ENCODE_LAUNCHES} a chunk")
+        if any(not 0 < tok < VOCAB for h in hyps for tok in h) or not any(hyps):
+            raise AssertionError(f"stream, cap {cap}: no tokens, or a token out of range")
+    served_shapes = dict(shapes)
+
+    # float32 on the card: the whole-history stream against the chunk-masked
+    # full encode of the same model (the same arithmetic cut differently:
+    # 1e-4); with int8 weights, the same two under phase 4's rule (0.1, and
+    # a differing best token only at a near-tie of the encode's top two)
+    exact = {}
+    q32 = ASRInference(model, weight_quant="int8", weight_quant_min_size=QUANT_MIN)
+    hooks += count_gemm_shapes(q32.model, quant, shapes)
+    for name, m, tol in (("float32", model, 1e-4), ("int8", q32.model, 0.1)):
+        err, differ, decided = 0.0, 0, 0
+        with torch.inference_mode():
+            for u, chunks in zip(utts, streams):
+                got = streamed_log_probs(m, chunks, -1)[0]
+                enc_out, _ = m.encode(u, torch.tensor([u.shape[1]], device="cuda"),
+                                      decoding_chunk_size=STREAM_CHUNK)
+                want = m.ctc_log_probs(enc_out)[0]
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"stream {name}: {tuple(got.shape)} vs "
+                                         f"{tuple(want.shape)}, or non-finite values")
+                err = max(err, (got - want).abs().max().item())
+                top2 = want.topk(2, dim=-1).values
+                diff = got.argmax(-1) != want.argmax(-1)
+                differ += diff.sum().item()
+                decided += (diff & (top2[:, 0] - top2[:, 1] > 2 * tol)).sum().item()
+        exact[name] = {"max_abs_err": err, "tol": tol, "frames_best_differs": differ,
+                       "of_them_not_near_ties": decided}
+        log(f"stream, whole history, {name} on the card vs the chunk-masked encode: log-prob "
+            f"max abs err {err:.3e} (tol {tol}); frames whose best token differs {differ} "
+            f"(near-ties {differ - decided})")
+        if not err <= tol or decided:
+            raise AssertionError(f"stream {name}: {exact[name]}")
+    for h in hooks:
+        h.remove()
+
+    # the int8 GEMM at every shape the streams met, against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results = []
+    for (m, k, n, dtype), count in sorted(shapes.items()):
+        results.append(check_int8_gemm(quant, m, k, n, getattr(torch, dtype), gen,
+                                       timed=(m, k, n, dtype) in served_shapes))
+        results[-1]["launches"] = count
+    checked = {(r["m"], r["k"], r["n"], r["dtype"]): r for r in results}
+    if set(shapes) - set(checked):
+        raise AssertionError(f"stream GEMM shapes not checked: {set(shapes) - set(checked)}")
+    expected_reduce = sum(n for s, n in served_shapes.items() if checked[s]["splits"] > 1)
+    reduce_launches = sum(r["reduce_launches"] for r in runs.values())
+    log(f"stream split-K sum pass launches {reduce_launches} (expected {expected_reduce})")
+    if reduce_launches != expected_reduce:
+        raise AssertionError(f"stream: split-K sum pass launched {reduce_launches} times, "
+                             f"expected {expected_reduce}")
+    worst = max(r["max_abs_err"] / r["tol"] for r in results)
+    log(f"stream int8_matmul vs plain: {len(results)} shapes met, all agree (worst max_abs/tol "
+        f"{worst:.3f}); the float32 ones (the int8 check above) untimed; the served ones: M K N "
+        "splits launches | max_abs tol | kernel plain library bound (ms) | bound/kernel")
+    for r in results:
+        if "ms" in r:
+            log(f"  {r['m']} {r['k']} {r['n']} {r['splits']} {r['launches']} | "
+                f"{r['max_abs_err']:.3e} {r['tol']:.3e} | {r['ms']:.4f} {r['plain_ms']:.4f} "
+                f"{r['library_ms']:.4f} {r['bound_ms']:.5f} ({r['bound_by']}) | "
+                f"{r['bound_share']:.3f}")
+    per_chunk = {key: sum(r[key] * served_shapes[(r["m"], r["k"], r["n"], r["dtype"])]
+                          for r in results if "ms" in r) / sum(runs[c]["chunks"] for c in runs)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log("stream int8 GEMM device time per chunk (times x launches, both caps): "
+        + ", ".join(f"{key} {value:.4f}" for key, value in per_chunk.items())
+        + f"; kernel / library {per_chunk['ms'] / per_chunk['library_ms']:.2f}")
+    del serving, q32, model
+    torch.cuda.empty_cache()
+    return {"runs": {str(c): r for c, r in runs.items()}, "exact": exact,
+            "gemm_ms_per_chunk": per_chunk, "shapes_checked": len(results),
+            "worst_err_over_tol": worst}, results
+
+
 def recipe_phase(ctc_dp):
     """Phase 9: the Conformer recipe (``mindaudio_torch/recipes/conformer``)
     as a user runs it, at the full width and depth of ``conformer.yaml``, on
     a small cipher corpus in a temporary directory: CMVN stats, training with
     dev-scored checkpoints, a resumed run in the same process, a best-2
-    average and two decodes. Returns ``(ctc launches, summary)``."""
+    average, two decodes, and the streaming decode of a short causal-conv
+    run. Returns ``(ctc launches, summary)``."""
     import tempfile
 
     from mindaudio_torch.recipes.conformer import compute_cmvn_stats, convergence_run
@@ -906,13 +1133,28 @@ def recipe_phase(ctc_dp):
             f"{best[-1]}; {ckpt_bytes} bytes a checkpoint")
         del avg, a, b, final
 
+        # streaming decodes a model with a causal conv: a short run of the
+        # streaming-ready model (causal conv, sampled chunk masks) into a
+        # checkpoint directory of its own, decoded from its last checkpoint
+        stream_flags = ["--model.causal_conv", "true", "--model.use_dynamic_chunk", "true",
+                        "--train.ckpt_dir", f"{root}/ckpt_stream"]
+        t = time.perf_counter()
+        causal = rtrain.main(args(RECIPE_STREAM_STEPS) + stream_flags)
+        causal_s = time.perf_counter() - t
+        log(f"recipe: the causal-conv model trained {causal['steps']} steps, {causal_s:.1f} s "
+            f"(steps saved {checkpoint.list_steps(f'{root}/ckpt_stream')})")
+        if causal["steps"] != RECIPE_STREAM_STEPS:
+            raise AssertionError(f"recipe: the causal-conv run took {causal['steps']} steps")
+
         cers = {}
-        for mode in ("ctc_greedy", "attention_rescoring"):
+        for mode, flags in (("ctc_greedy", ["--decode.average_num", "2"]),
+                            ("attention_rescoring", ["--decode.average_num", "2"]),
+                            ("streaming", ["--decode.average_num", "1"] + stream_flags)):
             t = time.perf_counter()
-            cers[mode] = rpredict.main(args(0) + ["--decode.average_num", "2",
-                                                  "--decode.mode", mode])
-            log(f"recipe: decode {mode} of {RECIPE_UTTS[2]} test utterances, best-2 average: "
-                f"CER {100 * cers[mode]:.2f}% (after {steps} steps: not judged), "
+            cers[mode] = rpredict.main(args(0) + flags + ["--decode.mode", mode])
+            what = "best-2 average" if mode != "streaming" else "the causal-conv model"
+            log(f"recipe: decode {mode} of {RECIPE_UTTS[2]} test utterances, {what}: "
+                f"CER {100 * cers[mode]:.2f}% (not judged this early), "
                 f"{time.perf_counter() - t:.1f} s")
             with open(f"{root}/result.txt", encoding="utf-8") as f:
                 lines = f.read().splitlines()
@@ -1088,6 +1330,11 @@ def main():
         raise AssertionError("attention_rescoring_batch: malformed result")
     log(f"greedy hyp lengths {[len(h) for h in hyps]}; "
         f"rescored lengths {[len(h) for h, _ in rescored]}")
+    # the native prefix-beam DP that rescoring ran, against the Python DP: on
+    # the served batch's own top-k (bf16 logits, so exact ties), then on the
+    # float32 model's
+    dps = {"served": dp_check("the served batch's", serving.model, feats, frame_lens),
+           "float32": dp_check("the float32 model's", model, feats, frame_lens)}
 
     # one request, float32 model: the card against the CPU's plain versions,
     # on the same features (the front-end is compared on its own first)
@@ -1257,6 +1504,11 @@ def main():
     # resume, a best-2 average, decoding
     recipe_launches, recipe = recipe_phase(ctc_dp)
 
+    # 10. streaming decode of the served utterances, and the int8 GEMM at the
+    # shapes it meets
+    stream, stream_results = streaming_phase(quant, wav_np, frames)
+    stream_launches = sum(r["launches"] for r in stream["runs"].values())
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -1271,7 +1523,9 @@ def main():
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": [head["m"], head["k"], head["n"], head["dtype"]],
         "reduce_kernel": "splitk_reduce_kernel", "reduce_launches": reduce_launches,
-        "card": card, "shapes": results,
+        "card": card, "shapes": results, "prefix_beam_dp": dps,
+        "stream_launches": stream_launches, "stream": stream,
+        "stream_shapes": [r for r in stream_results if r["m"] == STREAM_CHUNK and "ms" in r],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",

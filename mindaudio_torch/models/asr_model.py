@@ -3,8 +3,9 @@
 
 A Conformer encoder, a Transformer decoder with label-smoothing loss and a
 CTC head, combined as ``loss = w * loss_ctc + (1 - w) * loss_att`` in
-``forward``. ``encode``, ``ctc_log_probs``, ``decode_step`` and
-``decoder_logits`` are the pieces that decoding calls. The ``remat``,
+``forward``. ``encode``, ``ctc_log_probs``, ``decode_step``,
+``decoder_logits`` and, streaming, ``encode_chunk`` are the pieces that
+decoding calls. The ``remat``,
 ``int8_ffn``, MoE, pipeline and sequence-parallel knobs of the JAX module are
 not ported yet.
 """
@@ -135,6 +136,14 @@ class ASRModel(nn.Module):
                num_decoding_left_chunks=-1):
         return self.encoder(feats, feat_lens, decoding_chunk_size=decoding_chunk_size,
                             num_decoding_left_chunks=num_decoding_left_chunks)
+
+    def encode_chunk(self, xs, att_caches=None, cnn_caches=None, required_cache_size=-1):
+        """Streaming: one encoder chunk (``ConformerEncoder.forward_chunk``)
+        and its float32 CTC log-probs: ``(log_probs (B, C, vocab),
+        att_caches, cnn_caches)``. Needs ``causal_conv=True``."""
+        ys, att_caches, cnn_caches = self.encoder.forward_chunk(
+            xs, att_caches, cnn_caches, required_cache_size)
+        return self.ctc_log_probs(ys), att_caches, cnn_caches
 
     def ctc_log_probs(self, enc_out):
         """(B, T', vocab) float32 log-softmax CTC posterior."""

@@ -1,8 +1,8 @@
 """Conformer encoder + Transformer decoder (port of ``mindaudio_tpu.models.conformer``).
 
-The dense path, for decoding and training: no MoE, sequence parallelism,
-pipeline, rematerialization or int8 FFN training knobs, and no streaming
-``forward_chunk`` yet.
+The dense path, for decoding, streaming decode (``forward_chunk``) and
+training: no MoE, sequence parallelism, pipeline, rematerialization or int8
+FFN training knobs.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .layers import (
     PositionwiseFeedForward,
     RelPositionMultiHeadedAttention,
     Swish,
+    sinusoid_table,
 )
 
 __all__ = ["ConformerEncoderLayer", "ConformerEncoder", "DecoderLayer",
@@ -31,7 +32,11 @@ __all__ = ["ConformerEncoderLayer", "ConformerEncoder", "DecoderLayer",
 
 class ConformerEncoderLayer(nn.Module):
     """Macaron FFN → rel-pos MHSA → conv module → FFN → LayerNorm, pre-norm,
-    with half-step FFN residuals."""
+    with half-step FFN residuals.
+
+    Streaming: with ``att_cache`` (the ``(k, v)`` of the frames before this
+    chunk) and ``cnn_cache`` (the conv module's left context) the layer
+    returns ``(x, new_att_cache, new_cnn_cache)``."""
 
     def __init__(self, d_model, head_num, ffn_dim, dropout_rate=0.1,
                  attention_dropout_rate=0.0, kernel_size=15, causal_conv=False):
@@ -50,13 +55,23 @@ class ConformerEncoderLayer(nn.Module):
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = FastDropout(dropout_rate)
 
-    def forward(self, x, mask, pos_emb, mask_pad=None):
+    def forward(self, x, mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None):
+        streaming = att_cache is not None
         x = x + 0.5 * self.dropout(self.feed_forward_macaron(self.norm_ff_macaron(x)))
         y = self.norm_mha(x)
-        x = x + self.dropout(self.self_attn(y, y, y, mask=mask, pos_emb=pos_emb))
-        x = x + self.dropout(self.conv_module(self.norm_conv(x), mask_pad=mask_pad))
+        y = self.self_attn(y, y, y, mask=mask, pos_emb=pos_emb, kv_cache=att_cache)
+        if streaming:
+            y, new_att_cache = y
+        x = x + self.dropout(y)
+        y = self.conv_module(self.norm_conv(x), mask_pad=mask_pad, cache=cnn_cache)
+        if cnn_cache is not None:
+            y, new_cnn_cache = y
+        x = x + self.dropout(y)
         x = x + 0.5 * self.dropout(self.feed_forward(self.norm_ff(x)))
-        return self.norm_final(x)
+        out = self.norm_final(x)
+        if streaming:
+            return out, new_att_cache, new_cnn_cache if cnn_cache is not None else None
+        return out
 
 
 class ConformerEncoder(nn.Module):
@@ -64,6 +79,7 @@ class ConformerEncoder(nn.Module):
 
     ``forward`` returns ``(encoder_out, encoder_mask)`` with
     ``encoder_mask: (B, 1, T')`` True at valid subsampled frames.
+    :meth:`forward_chunk` encodes a stream chunk by chunk.
     """
 
     def __init__(self, input_dim=80, d_model=256, head_num=4, ffn_dim=2048,
@@ -72,6 +88,8 @@ class ConformerEncoder(nn.Module):
                  causal_conv=False, cmvn_mean=None, cmvn_istd=None,
                  use_dynamic_left_chunk=False):
         super().__init__()
+        self.d_model, self.head_num, self.kernel_size = d_model, head_num, kernel_size
+        self.causal_conv = causal_conv
         self.use_dynamic_chunk = use_dynamic_chunk
         self.use_dynamic_left_chunk = use_dynamic_left_chunk
         self.static_chunk_size = static_chunk_size
@@ -106,6 +124,60 @@ class ConformerEncoder(nn.Module):
         for layer in self.layers:
             xs = layer(xs, chunk_masks, pos_emb, mask_pad)
         return xs, masks
+
+    def forward_chunk(self, xs, att_caches=None, cnn_caches=None, required_cache_size=-1):
+        """Streaming: encode ONE raw-feature chunk with per-layer caches.
+
+        Args:
+            xs: ``(B, raw_T, F)`` features. For ``C`` subsampled frames a
+                chunk feed ``raw_T = 4*C + 3`` frames stepping ``4*C`` (the
+                subsampling's receptive field looks 3 frames back).
+            att_caches: per layer the ``(k, v)`` of all earlier frames
+                (``(B, heads, T_cache, d_k)`` each), or None at the start.
+            cnn_caches: per layer the conv module's ``(B, kernel-1,
+                d_model)`` left context, or None at the start.
+            required_cache_size: cap on the attention cache (subsampled
+                frames): ``-1`` keeps all of it (exact: equal to the full
+                encoder with chunk masks of size ``C`` and full left
+                context), ``0`` none, ``n > 0`` the last ``n``.
+
+        Returns:
+            ``(ys (B, C, d_model), att_caches, cnn_caches)``.
+
+        Needs ``causal_conv=True``; decode in eval mode (dropout follows the
+        module's mode).
+        """
+        if not self.causal_conv:
+            raise ValueError("forward_chunk: streaming needs causal_conv=True")
+        if self.global_cmvn is not None:
+            xs = self.global_cmvn(xs)
+        dtype = self.embed.conv1.weight.dtype
+        xs, _ = self.embed(xs.to(dtype))
+
+        b, dev = xs.shape[0], xs.device
+        if att_caches is None:
+            empty = torch.zeros((b, self.head_num, 0, self.d_model // self.head_num),
+                                dtype=dtype, device=dev)
+            att_caches = [(empty, empty)] * len(self.layers)
+        if cnn_caches is None:
+            cnn_caches = [torch.zeros((b, self.kernel_size - 1, self.d_model), dtype=dtype,
+                                      device=dev)] * len(self.layers)
+        # positions 0 .. cache + chunk - 1: the rows of the embed's table
+        t_total = max(att_caches[0][0].shape[2] + xs.shape[1], 1)
+        table = self.embed.pos_enc.pe
+        if t_total > table.shape[0]:
+            table = torch.from_numpy(sinusoid_table(t_total, self.d_model)).to(dev)
+        pos_emb = table[None, :t_total].to(dtype)
+
+        new_att, new_cnn = [], []
+        for layer, a_c, c_c in zip(self.layers, att_caches, cnn_caches):
+            xs, (k, v), c_new = layer(xs, None, pos_emb, None, att_cache=a_c, cnn_cache=c_c)
+            if required_cache_size >= 0:  # the WeNet cap; 0 keeps no left context
+                keep = k.shape[2] - min(required_cache_size, k.shape[2])
+                k, v = k[:, :, keep:], v[:, :, keep:]
+            new_att.append((k, v))
+            new_cnn.append(c_new)
+        return xs, new_att, new_cnn
 
 
 class DecoderLayer(nn.Module):

@@ -258,6 +258,11 @@ class ConvolutionModule(nn.Module):
     after ``pointwise_conv2``, so padding never leaks across frames. The
     depthwise conv pads ``(k-1)//2`` on both sides, or ``k-1`` on the left
     when ``causal``.
+
+    Streaming (``causal`` only): ``cache`` is the ``(B, k-1, C)`` depthwise
+    input of the frames before this chunk; it is prepended in place of the
+    left padding, and ``(x, new_cache)`` is returned, ``new_cache`` being the
+    last ``k-1`` frames of the depthwise input.
     """
 
     def __init__(self, channels, kernel_size=15, causal=False):
@@ -268,19 +273,29 @@ class ConvolutionModule(nn.Module):
                                         groups=channels)
         self.norm = nn.LayerNorm(channels, eps=LN_EPS)
         self.pointwise_conv2 = nn.Linear(channels, channels)
+        self.kernel_size, self.causal = kernel_size, causal
         half = (kernel_size - 1) // 2
         self.pad = (kernel_size - 1, 0) if causal else (half, half)
 
-    def forward(self, x, mask_pad=None):
+    def forward(self, x, mask_pad=None, cache=None):
         # x: (B, T, C); mask_pad: (B, T) True = valid
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad[..., None], 0.0)
         x = self.glu(self.pointwise_conv1(x))
-        x = self.depthwise_conv(F.pad(x.transpose(1, 2), self.pad)).transpose(1, 2)
+        pad, new_cache = self.pad, None
+        if cache is not None:
+            if not self.causal:
+                raise ValueError("a conv cache needs a causal conv module")
+            x = torch.cat([cache.to(x.dtype), x], dim=1)
+            new_cache = x[:, x.shape[1] - (self.kernel_size - 1):]
+            pad = (0, 0)
+        x = self.depthwise_conv(F.pad(x.transpose(1, 2), pad)).transpose(1, 2)
         x = self.norm(x)
         x = self.pointwise_conv2(x * torch.sigmoid(x))
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad[..., None], 0.0)
+        if new_cache is not None:
+            return x, new_cache
         return x
 
 

@@ -17,7 +17,7 @@ import os
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "load"]
+__all__ = ["build", "load", "compile_parallel", "hashed_lib_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -35,10 +35,42 @@ def _nvcc():
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def hashed_lib_path(source, flags, build_dir, name):
+    """``build_dir/lib<name>-<hash>.so``, the hash over the source's bytes and
+    the flags, so that an edited source or a changed flag builds anew."""
+    digest = hashlib.sha256(Path(source).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return Path(build_dir) / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
 def _lib_path(name):
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return hashed_lib_path(CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR, name)
+
+
+def compile_parallel(compiler, flags, jobs):
+    """Run ``compiler *flags -o <tmp> <source>`` for every ``name: (source,
+    lib)`` of ``jobs``, all at once, and move each output onto ``lib`` with
+    ``os.replace`` (a temporary name per process, so that processes building
+    the same library at once never load a partial file). Returns ``{name:
+    compiler output}``; raises with the output of every build that failed."""
+    procs = {}
+    for name, (source, lib) in jobs.items():
+        Path(lib).parent.mkdir(parents=True, exist_ok=True)
+        tmp = Path(lib).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *flags, "-o", str(tmp), str(source)]
+        procs[name] = (tmp, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {Path(compiler).name} {name} (exit {proc.returncode})\n{out}")
+            continue
+        os.replace(tmp, lib)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return reports
 
 
 def build(names=None):
@@ -50,25 +82,8 @@ def build(names=None):
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in todo:
-        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
-    reports, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n{out}")
-            continue
-        os.replace(tmp, _lib_path(name))
-        reports[name] = out
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return reports
+    return compile_parallel(_nvcc(), NVCC_FLAGS,
+                            {n: (CSRC / f"{n}.cu", _lib_path(n)) for n in todo})
 
 
 def load(name):

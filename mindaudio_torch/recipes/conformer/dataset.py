@@ -3,8 +3,10 @@
 
 The collate only reads, pads and tokenizes on the host; the fbank, dither,
 SpecAugment and CMVN run on the card inside the train step (``train.py``).
-Length buckets bound the set of batch shapes. Audio is read by
-``data.io.read`` (the JAX recipe's native batch loader has no port yet).
+Length buckets bound the set of batch shapes. Audio is read by the native
+batch loader (``_native.wav_read_batch``, a C++ thread pool) when no speed
+perturbation is asked and every file is 16 kHz, else file by file through
+``data.io.read``, as the JAX recipe does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ... import _native
 from ...data import io
 from ...data.processing import resample
 from ...utils.common import IGNORE_ID, add_sos_eos, pad_sequence
@@ -101,19 +104,10 @@ class BucketSampler:
         return sum(len(b) // bs for b, bs in zip(self.buckets, self.batch_bucket_limit))
 
 
-def collate(utts: Sequence[Utt], tokenizer: CharTokenizer, bucket_frames: int,
-            max_label_len: int = 30, speed_perturb: bool = False,
-            rng: Optional[np.random.Generator] = None):
-    """Read and pad raw audio and tokenize the labels into the model's batch
-    dict of numpy arrays.
-
-    Audio is padded to the bucket's length ``bucket_frames * FRAME_SHIFT +
-    FRAME_LEN`` and shipped as int16 PCM (half the bytes of float32;
-    ``kaldi_fbank`` takes integer samples as they are). Speed perturbation
-    (0.9/1.0/1.1) resamples before the padding, as it changes the length.
-    """
-    rng = rng or np.random.default_rng()
-    wav_len = bucket_frames * FRAME_SHIFT + FRAME_LEN
+def _read_one_by_one(utts, wav_len, speed_perturb, rng):
+    """The batch's audio through ``data.io.read``: first channel, resampled
+    to 16 kHz, speed-perturbed when asked, cut and zero-padded to
+    ``wav_len``."""
     wavs = np.zeros((len(utts), wav_len), np.float32)
     wav_lens = np.zeros((len(utts),), np.int32)
     for i, u in enumerate(utts):
@@ -130,6 +124,31 @@ def collate(utts: Sequence[Utt], tokenizer: CharTokenizer, bucket_frames: int,
         n = min(len(x), wav_len)
         wavs[i, :n] = x[:n]
         wav_lens[i] = n
+    return wavs, wav_lens
+
+
+def collate(utts: Sequence[Utt], tokenizer: CharTokenizer, bucket_frames: int,
+            max_label_len: int = 30, speed_perturb: bool = False,
+            rng: Optional[np.random.Generator] = None):
+    """Read and pad raw audio and tokenize the labels into the model's batch
+    dict of numpy arrays.
+
+    Audio is padded to the bucket's length ``bucket_frames * FRAME_SHIFT +
+    FRAME_LEN`` and shipped as int16 PCM (half the bytes of float32;
+    ``kaldi_fbank`` takes integer samples as they are). Without speed
+    perturbation the batch is read by ``_native.wav_read_batch`` and kept
+    when every file is 16 kHz (a failed build of the loader raises); else
+    file by file, speed perturbation (0.9/1.0/1.1) resampling before the
+    padding, as it changes the length.
+    """
+    rng = rng or np.random.default_rng()
+    wav_len = bucket_frames * FRAME_SHIFT + FRAME_LEN
+    batch = None
+    if not speed_perturb:
+        wavs, wav_lens, rates = _native.wav_read_batch([u.wav for u in utts], wav_len)
+        if (rates == SAMPLE_RATE).all():
+            batch = wavs, wav_lens
+    wavs, wav_lens = batch or _read_one_by_one(utts, wav_len, speed_perturb, rng)
 
     labels = [np.asarray(tokenizer.encode(u.text), np.int32) for u in utts]
     wavs = np.clip(np.round(wavs * 32768.0), -32768, 32767).astype(np.int16)

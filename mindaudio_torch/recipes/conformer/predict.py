@@ -5,8 +5,10 @@ Loads the latest checkpoint, or the average of the ``decode.average_num``
 best by dev loss (the last N when training recorded no scores), decodes the
 test manifest in batches of ``decode.batch_size`` utterances grouped by
 length bucket with one of ``ctc_greedy``, ``ctc_prefix_beam``, ``attention``
-or ``attention_rescoring``, writes ``<utt> <hypothesis>`` lines to the result
-file and returns the CER.
+or ``attention_rescoring`` (or, with ``streaming``, one utterance at a time in
+chunks of ``decode.chunk_size`` subsampled frames with the attention cache
+capped at ``decode.streaming_cache_size``; the model needs ``causal_conv``),
+writes ``<utt> <hypothesis>`` lines to the result file and returns the CER.
 
 Usage::
 
@@ -33,7 +35,7 @@ from .dataset import FRAME_LEN, FRAME_SHIFT, SAMPLE_RATE, BucketSampler, read_ma
 from .train import build_model, load_params, parse_args
 
 BUCKET_FRAMES = BucketSampler.DEFAULT_FRAME_BUCKETS
-BATCHED_MODES = ("ctc_greedy", "ctc_prefix_beam", "attention", "attention_rescoring")
+MODES = ("ctc_greedy", "ctc_prefix_beam", "attention", "attention_rescoring", "streaming")
 
 
 def select_steps(ckpt_dir, avg_n, average_best=True):
@@ -61,14 +63,23 @@ def load_wav(path):
     return x
 
 
+def stream_chunks(feats, n_frames, chunk_size):
+    """The streaming chunks of one utterance's ``(1, T, F)`` features with
+    ``n_frames`` valid: ``4*C + 3`` frames stepping ``4*C`` for ``C =
+    chunk_size`` subsampled frames, each starting at least 7 frames before
+    the end (the last one may be shorter), as the JAX recipe cuts them."""
+    step = 4 * chunk_size
+    return [feats[:, lo: lo + step + 3] for lo in range(0, max(n_frames - 3, 1), step)
+            if lo + 7 <= n_frames]
+
+
 def main(argv=None):
     cfg, device = parse_args(argv)
     mode = cfg.decode.mode
-    if mode == "streaming":
-        raise NotImplementedError("decode.mode streaming is not ported to PyTorch yet "
-                                  "(ConformerEncoder.forward_chunk: ROADMAP queue 1 item 4)")
-    if mode not in BATCHED_MODES:
+    if mode not in MODES:
         raise ValueError(f"unknown decode mode {mode}")
+    if mode == "streaming" and not cfg.model.get("causal_conv", False):
+        raise ValueError("decode.mode streaming needs a model with model.causal_conv true")
     tokenizer = CharTokenizer.from_file(cfg.data.vocab_file)
     model = build_model(cfg, tokenizer.vocab_size, device, training=False)
 
@@ -102,8 +113,9 @@ def main(argv=None):
     utts = read_manifest(cfg.data.test_csv)
 
     # utterances grouped into (bucket, batch) groups: one encoder pass per
-    # group, and for rescoring one decoder pass over its B * beam hypotheses
-    decode_bs = int(cfg.decode.get("batch_size", 16))
+    # group, and for rescoring one decoder pass over its B * beam hypotheses;
+    # streaming decodes one utterance at a time
+    decode_bs = 1 if mode == "streaming" else int(cfg.decode.get("batch_size", 16))
     by_bucket = {}
     for u in utts:
         x = load_wav(u.wav)
@@ -136,8 +148,13 @@ def main(argv=None):
                 batch_hyps = [list(h[0][0]) for h in bh]
             elif mode == "attention":
                 batch_hyps = [h for h, _ in inference.recognize_batch(feats, feat_lens)]
-            else:
+            elif mode == "attention_rescoring":
                 batch_hyps = [h for h, _ in inference.attention_rescoring_batch(feats, feat_lens)]
+            else:
+                chunks = stream_chunks(feats, int(feat_lens[0]),
+                                       int(cfg.decode.get("chunk_size", 16)))
+                batch_hyps = [inference.streaming_ctc_greedy(
+                    chunks, required_cache_size=int(cfg.decode.get("streaming_cache_size", 128)))]
             for (u, _), hyp_ids in zip(chunk, batch_hyps):
                 results[u.utt_id] = hyp_ids
 

@@ -1,9 +1,13 @@
 """ASR decode drivers: CTC greedy / CTC prefix beam / attention beam /
 attention rescoring (port of ``mindaudio_tpu.utils.recognize``).
 
-The encoder, the per-frame top-k, the attention beam step and rescoring run
-on the model's device; the CTC prefix-beam dynamic program runs on the host
-over the device's top-k, in Python (the JAX package's C++ DP is not used).
+The encoder, the per-frame top-k, the attention beam step, rescoring and
+the streaming chunk step run on the model's device; the CTC prefix-beam
+dynamic program runs on the host over the device's top-k, in C++
+(``_native.ctc_prefix_beam_batch``, one thread per utterance).
+:func:`ctc_prefix_beam_dp` is its plain Python version, which the tests hold
+it against. The module-level functions at the end keep the reference's calling
+convention (the model passed on every call).
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from .. import _native
 from ..ops.quant import quantize_dense_params, swap_quantized
 from .common import add_sos_eos, log_add, pad_sequence, remove_duplicates_and_blank
 
-__all__ = ["ASRInference", "ctc_prefix_beam_dp"]
+__all__ = ["ASRInference", "ctc_prefix_beam_dp", "ctc_greedy_search",
+           "ctc_prefix_beam_search", "recognize", "attention_rescoring"]
 
 NEG_INF = -1.0e9
 
@@ -189,18 +195,16 @@ class ASRInference:
 
     @torch.inference_mode()
     def ctc_prefix_beam_search_batch(self, feats, feat_lens):
-        """One encoder + top-k pass for the batch, then the host DP per
-        utterance. Returns ``(batch_hyps, enc_out, enc_mask)`` with
-        ``batch_hyps[b]`` the best-first ``[(prefix, log_prob), ...]``."""
+        """One encoder + top-k pass for the batch, then the native host DP
+        (one thread per utterance). Returns ``(batch_hyps, enc_out,
+        enc_mask)`` with ``batch_hyps[b]`` the best-first ``[(prefix,
+        log_prob), ...]``."""
         enc_out, enc_mask, log_probs = self._encode(feats, feat_lens)
         top_logp, top_idx = log_probs.topk(self.beam_size, dim=-1)
         valid = enc_mask[:, 0, :].sum(-1).cpu().numpy()
-        top_logp, top_idx = top_logp.cpu().numpy(), top_idx.cpu().numpy()
-        batch_hyps = [
-            ctc_prefix_beam_dp(top_logp[b], top_idx[b], int(valid[b]),
-                               self.beam_size, self.blank_id)
-            for b in range(len(valid))
-        ]
+        batch_hyps = _native.ctc_prefix_beam_batch(
+            top_logp.cpu().numpy(), top_idx.cpu().numpy(), valid, self.beam_size,
+            self.blank_id)
         return batch_hyps, enc_out, enc_mask
 
     def ctc_prefix_beam_search(self, feats, feat_lens):
@@ -230,6 +234,34 @@ class ASRInference:
         """Batch-1 attention beam search; returns ``(tokens, score)``."""
         _check_batch_1(feats, "recognize_batch")
         return self.recognize_batch(feats, feat_lens)[0]
+
+    @torch.inference_mode()
+    def streaming_ctc_greedy(self, feat_chunks, required_cache_size=-1):
+        """Streaming CTC greedy over an iterable of raw-feature chunks, one
+        utterance: each chunk is ``(1, 4*C + 3, F)`` frames, stepping ``4*C``
+        (``models.conformer.ConformerEncoder.forward_chunk``). Tokens of a
+        chunk are final once it is processed. The model must be built with
+        ``causal_conv=True``.
+
+        ``required_cache_size`` caps the attention left context (subsampled
+        frames; 0 keeps none). The default ``-1`` keeps the whole history:
+        exact, equal to the chunk-masked full encode, but the cache and the
+        cost of a chunk grow with every chunk; long streams pass a cap.
+
+        Returns the collapsed token list.
+        """
+        att_caches = cnn_caches = None
+        hyp: List[int] = []
+        prev = self.blank_id
+        for chunk in feat_chunks:
+            chunk = torch.as_tensor(chunk, dtype=torch.float32, device=self.device)
+            log_probs, att_caches, cnn_caches = self.model.encode_chunk(
+                chunk, att_caches, cnn_caches, required_cache_size)
+            for tok in log_probs[0].argmax(-1).tolist():
+                if tok != prev and tok != self.blank_id:
+                    hyp.append(tok)
+                prev = tok
+        return hyp
 
     @torch.inference_mode()
     def attention_rescoring_batch(self, feats, feat_lens):
@@ -273,3 +305,69 @@ class ASRInference:
         """Batch-1 attention rescoring: ``(tokens, score)``."""
         _check_batch_1(feats, "attention_rescoring_batch")
         return self.attention_rescoring_batch(feats, feat_lens)[0]
+
+
+# ---- reference-name module-level decode functions ----
+#
+# The reference passes the model to a free function on every call. Each
+# (model, options) pair gets one ASRInference, kept in a small LRU, so that a
+# decode loop over one model builds (and, for int8, quantizes) it once. The
+# entry holds the model itself, so its id cannot be reused while cached, and
+# the weights' fingerprint: an instance that decodes a private copy (int8 or
+# another dtype) is built anew once the caller changes a weight in place
+# (``load_state_dict``, an optimizer step) or replaces it.
+
+_INFERENCE_LRU_MAX = 8
+_inference_cache: dict = {}
+
+
+def _weights_fingerprint(model):
+    """Each parameter's and buffer's storage address and version counter,
+    which every in-place change advances."""
+    return tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                 for t in (*model.parameters(), *model.buffers()))
+
+
+def _cached_inference(model, **opts):
+    key = (id(model), tuple(sorted(opts.items())))
+    fingerprint = _weights_fingerprint(model)
+    entry = _inference_cache.pop(key, None)
+    if entry is None or entry[1] != fingerprint:
+        entry = (model, fingerprint, ASRInference(model, **opts))
+    _inference_cache[key] = entry  # re-inserted: the most recently used
+    while len(_inference_cache) > _INFERENCE_LRU_MAX:
+        _inference_cache.pop(next(iter(_inference_cache)))
+    return entry[2]
+
+
+def ctc_greedy_search(model, feats, feat_lens, **opts):
+    """:meth:`ASRInference.ctc_greedy_search` of a cached instance."""
+    return _cached_inference(model, **opts).ctc_greedy_search(feats, feat_lens)
+
+
+def ctc_prefix_beam_search(model, feats, feat_lens, beam_size=10, **opts):
+    """Prefix beam search; batch 1 as :meth:`ASRInference.ctc_prefix_beam_search`,
+    a larger batch as ``ctc_prefix_beam_search_batch``."""
+    inf = _cached_inference(model, beam_size=beam_size, **opts)
+    if feats.shape[0] == 1:
+        return inf.ctc_prefix_beam_search(feats, feat_lens)
+    return inf.ctc_prefix_beam_search_batch(feats, feat_lens)
+
+
+def recognize(model, feats, feat_lens, beam_size=10, **opts):
+    """Attention beam search; batch 1 as :meth:`ASRInference.recognize`, a
+    larger batch as ``recognize_batch``."""
+    inf = _cached_inference(model, beam_size=beam_size, **opts)
+    if feats.shape[0] == 1:
+        return inf.recognize(feats, feat_lens)
+    return inf.recognize_batch(feats, feat_lens)
+
+
+def attention_rescoring(model, feats, feat_lens, beam_size=10, ctc_weight=0.3, **opts):
+    """CTC prefix beam and decoder rescoring; batch 1 as
+    :meth:`ASRInference.attention_rescoring`, a larger batch as
+    ``attention_rescoring_batch``."""
+    inf = _cached_inference(model, beam_size=beam_size, ctc_weight=ctc_weight, **opts)
+    if feats.shape[0] == 1:
+        return inf.attention_rescoring(feats, feat_lens)
+    return inf.attention_rescoring_batch(feats, feat_lens)

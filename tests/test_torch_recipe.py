@@ -18,11 +18,13 @@ path and removed from ``sys.modules`` (and their directory from
 - both ``compute_cmvn_stats`` write the same statistics (float32 fbanks of
   both packages, summed in float64: rtol 1e-5), and both ``predict`` decode
   the same checkpoint (JAX parameters, converted for the port) to the same
-  hypotheses;
+  hypotheses, batched and streaming;
 - ``train.main()`` on ``--device cpu`` (2 + 1 layers, d_model 32) trains with
   saves, a resumed ``main()`` continues at the global step and the schedule,
   and ``predict.main()`` decodes the best-2 average;
-- settings the port cannot honour raise ``NotImplementedError``.
+- settings the port cannot honour raise ``NotImplementedError``;
+- streaming decode (``decode.mode: streaming``) matches the JAX recipe's
+  on a causal-conv model, and raises on a model without one.
 """
 
 import importlib.util
@@ -208,12 +210,14 @@ def test_cmvn_stats_match_jax(jax_recipe, corpus, tmp_path):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["ctc_greedy", "attention_rescoring"])
+@pytest.mark.parametrize("mode", ["ctc_greedy", "attention_rescoring", "streaming"])
 def test_predict_matches_jax(jax_recipe, corpus, tmp_path, mode):
     from mindaudio_tpu.train.checkpoint import save_checkpoint as jax_save
 
     argv = _args(corpus, 0, "--decode.mode", mode, "--decode.beam_size", "3",
                  "--decode.average_num", "1")
+    if mode == "streaming":  # chunks of 16 subsampled frames, the cache capped at 32
+        argv += ["--model.causal_conv", "true", "--decode.streaming_cache_size", "32"]
     if not os.path.exists(f"{corpus}/global_cmvn.json"):
         compute_cmvn_stats.main(argv + ["--device", "cpu"])
     cfg = jconfig.get_config(os.path.join(JAX_RECIPE, "conformer.yaml"), argv)
@@ -368,7 +372,8 @@ def test_what_the_port_cannot_honour_raises(corpus, tmp_path, flag, value, item)
 
 
 def test_streaming_decode_raises(corpus):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    """Streaming needs a causal conv module; the config's default has none."""
+    with pytest.raises(ValueError, match="causal_conv"):
         tpredict.main(_args(corpus, 0, "--device", "cpu", "--decode.mode", "streaming"))
 
 
