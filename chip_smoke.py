@@ -48,11 +48,14 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    S = 255/257 at the one-warp path's end, S = 1201 and 12001 on the block
    path, rows that cannot be aligned (a loss near 1e5) on both paths,
    B = 5, T not a multiple of the chunk and shorter than one, a zero
-   length beside a full one, lengths that differ per row), printing each
-   case's launch plan; time forward and backward, the plain version and
-   ``F.ctc_loss``'s device time (the yardstick, never called by the port),
-   beside the byte bound and the chain floor (the longest length times the
-   ladder's least measured step latency);
+   length beside a full one, lengths that differ per row) and DeepSpeech2's
+   train shapes on the block path (B = 64, S = 701, T' = 626 and 1001, ragged
+   lengths, 80-350 labels), printing each case's launch plan; time forward
+   and backward at the train shapes (the Conformer's three and DeepSpeech2's
+   two), the plain version and ``F.ctc_loss``'s device time (the yardstick,
+   never called by the port), beside the byte bound and the chain floor (the
+   longest length times the ladder's least measured step latency; for the
+   block path also times rung (d), the block kernels' step);
 6. hold the fused log-mel kernel (three TF32 tensor-core passes) against its
    plain version at both precisions: at the bench shape ``(128, 160000)``,
    at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)``, at
@@ -73,7 +76,8 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    the plain CTC recursion is timed beside it;
 8. one deterministic float32 step (B=2) on the card with the CTC kernels
    against the CPU with the plain recursion; and a poisoned batch, which must
-   leave parameters and moments bit-equal and advance the step counter;
+   leave parameters, moments and AdamW's count as they were (as optax's
+   state stays in the JAX package);
 9. the Conformer recipe (``mindaudio_torch/recipes/conformer``) as a user
    runs it, at the full width and depth of ``conformer.yaml``: ``gen`` a
    cipher corpus (256/64/32 utterances) into a temporary directory, CMVN
@@ -101,7 +105,23 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    chunks, ``linear_pos`` at M = cache + chunk) is held against the plain
    version and timed as in phase 3. In float32 the whole-history stream's
    log-probs must agree with the chunk-masked full encode of the same model
-   within 1e-4, and with int8 weights under phase 4's rule.
+   within 1e-4, and with int8 weights under phase 4's rule;
+11. the DeepSpeech2 recipe (``mindaudio_torch/recipes/deepspeech2``) as a
+   user runs it, at the full width of ``deepspeech2.yaml`` (hidden 1024, 5
+   summed-BiLSTM layers, 29 characters, 86.6 M parameters, float32): write a
+   synthetic corpus in LibriSpeech's layout (``synthetic.gen``: 64
+   utterances in each of the 800, 1250 and 2000-frame buckets, 64 test
+   utterances up to the 3500 bucket), ``train.main()`` for 20 steps at B = 64
+   with a save every 10, and ``eval.main()`` (CER/WER printed, not judged).
+   Every loss must be finite, the last loss in the first step's bucket below
+   the first, and the CTC kernels (the block path, S = 701) must launch once
+   forward and once backward a step. Prints ms per step at the 1250 bucket
+   (host clock, ten steps ending in a read-back) with cuDNN's TF32 off and
+   on, the peak memory and the bytes of a checkpoint; then holds one float32
+   step at full width (B = 2) on the card against the CPU's plain versions
+   from the same weights and AdamW state: loss, gradient norm, each
+   parameter's update and the running statistics, against stated
+   tolerances.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -138,6 +158,12 @@ TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, PLAIN_CTC_STEPS = 2, 10, 5
 RECIPE_UTTS, RECIPE_STEPS, RECIPE_RESUME_STEPS, RECIPE_SAVE_EVERY = (256, 64, 32), 40, 10, 20
 RECIPE_STREAM_STEPS = 5  # the causal-conv model that the streaming decode reads
 LOGMEL_BATCH, LOGMEL_SAMPLES, LOGMEL_CALLS = 128, 160000, 8  # the log-mel bench shape
+# DeepSpeech2 (recipes/deepspeech2/deepspeech2.yaml): B = 64, 29 characters,
+# labels padded to 350; phase 11 trains 20 steps on a synthetic corpus of 64
+# utterances in each of the 800, 1250 and 2000-frame buckets (3 batches an
+# epoch) and decodes 64 test utterances in the 3500 bucket
+DS2_BATCH, DS2_VOCAB, DS2_LABELS = 64, 29, 350
+DS2_STEPS, DS2_SAVE_EVERY, DS2_TIMED_STEPS = 20, 10, 10
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -390,6 +416,17 @@ def ctc_case(name, gen):
         return draw(4, 40, 8, 15, lens=[40, 0, 40, 21], llens=[8, 3, 0, 5])
     if name == "lengths_differ_per_row":
         return draw(4, 50, 12, 30, lens=[50, 33, 41, 26], llens=[12, 7, 10, 3])
+    # DeepSpeech2's train step: B=64, labels padded to 350 (S = 701, the block
+    # path), vocabulary 29 with the blank last, T' = 626 (the 1250-frame
+    # bucket) or 1001 (the 2000-frame bucket); ragged lengths of 3/4 T' to
+    # T' and 80-350 labels, each row with one full length and label
+    if name.startswith("deepspeech2_"):
+        t = int(name.split("_")[1])
+        rng = np.random.default_rng(t)
+        lens = [t] + rng.integers(3 * t // 4, t + 1, DS2_BATCH - 1).tolist()
+        llens = [DS2_LABELS] + rng.integers(80, DS2_LABELS + 1, DS2_BATCH - 1).tolist()
+        return draw(DS2_BATCH, t, DS2_LABELS, DS2_VOCAB, lens=lens, llens=llens,
+                    blank=DS2_VOCAB - 1)
     raise KeyError(name)
 
 
@@ -399,8 +436,9 @@ CTC_CASES = ["flagship", "longest_labels", "long_bucket", "mixed_lengths_and_rep
              "width_257", "wider_than_a_block", "widest_rows", "unalignable_rows",
              "unalignable_wide_rows", "batch_of_five",
              "t_not_a_multiple_of_the_chunk", "t_shorter_than_a_chunk",
-             "zero_length_beside_full_length", "lengths_differ_per_row"]
-CTC_TIMED = CTC_CASES[:3]
+             "zero_length_beside_full_length", "lengths_differ_per_row",
+             "deepspeech2_626", "deepspeech2_1001"]
+CTC_TIMED = CTC_CASES[:3] + CTC_CASES[-2:]
 
 
 # csrc/ctc_probe.cu's variants, in its order: each adds one part of a step
@@ -790,8 +828,8 @@ def train_phase(ctc_dp, ctc_times):
     same = all(torch.equal(a, b) for a, b in
                zip(before, (*model.parameters(), *optimizer.mu, *optimizer.nu)))
     log(f"poisoned batch: loss {bad_loss}, parameters and moments bit-equal {same}, "
-        f"step counter {count} -> {optimizer.count.item()}")
-    if np.isfinite(bad_loss) or not same or optimizer.count.item() != count + 1:
+        f"AdamW count {count} -> {optimizer.count.item()}")
+    if np.isfinite(bad_loss) or not same or optimizer.count.item() != count:
         raise AssertionError("poisoned batch: the update was not skipped cleanly")
     return launches
 
@@ -1165,6 +1203,196 @@ def recipe_phase(ctc_dp):
                       "dev_losses": dev, "cer": cers, "checkpoint_bytes": ckpt_bytes}
 
 
+def ds2_batch_to(batch, device):
+    """A DeepSpeech2 numpy batch as tensors on ``device`` (int32 → int64)."""
+    return {k: (torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
+            .to(device) for k, v in batch.items() if k != "n_valid"}
+
+
+def ds2_step_ms(ds_train, cfg, batch):
+    """ms per DeepSpeech2 train step at full width on ``batch`` (host clock,
+    ``DS2_TIMED_STEPS`` steps after two warm-up steps, ending in the loss's
+    read-back), with cuDNN's TF32 off and then on; the matrix products'
+    TF32 stays off (PyTorch's default)."""
+    model = ds_train.build_model(cfg, "cuda").train()
+    step = ds_train.make_step(cfg, model, ds_train.make_optimizer(cfg, model))
+    dev = ds2_batch_to(batch, "cuda")
+    out = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for _ in range(2):
+                step(dev)
+            float(step(dev)["loss"])
+            t = time.perf_counter()
+            for _ in range(DS2_TIMED_STEPS):
+                metrics = step(dev)
+            loss = float(metrics["loss"])
+            out["tf32_on" if tf32 else "tf32_off"] = {
+                "ms": 1e3 * (time.perf_counter() - t) / DS2_TIMED_STEPS, "loss": loss}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def ds2_card_against_cpu(ds_train, cfg):
+    """One deterministic float32 DeepSpeech2 train step at full width, B=2
+    (390 and 300 frames in the 400 bucket): the card with the CTC kernels
+    against the CPU with the plain recursion, from the same weights and the
+    same running AdamW state (count 3, seeded moments, so that the update is
+    smooth in the gradient). Returns the errors and their tolerances."""
+    from mindaudio_torch.models.layers import running_stats
+    from mindaudio_torch.recipes.deepspeech2 import dataset as ds
+    from mindaudio_torch.recipes.deepspeech2 import synthetic
+
+    rng = np.random.default_rng(11)
+    wavs = np.zeros((2, 400 * ds.HOP), np.float32)
+    labels = np.zeros((2, ds.MAX_LABEL_LEN), np.int32)
+    wav_lens, label_lens = np.zeros(2, np.int32), np.zeros(2, np.int32)
+    for i, frames in enumerate((390, 300)):
+        wav, text = synthetic._utterance(rng, frames)
+        ids = [ds.CHAR2ID[c] for c in text]
+        wavs[i, :len(wav)], wav_lens[i] = wav, len(wav)
+        labels[i, :len(ids)], label_lens[i] = ids, len(ids)
+    batch = {"wavs": wavs, "wav_lens": wav_lens, "labels": labels, "label_lens": label_lens}
+
+    card = ds_train.build_model(cfg, "cuda").train()
+    cpu = copy.deepcopy(card).cpu()
+    names = [n for n, _ in card.named_parameters()]
+    moments = {"count": 3,
+               "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
+                      for n, p in card.named_parameters()},
+               "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
+                      for n, p in card.named_parameters()}}
+    out = {}
+    for name, model, device in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        opt = ds_train.make_optimizer(cfg, model)
+        opt.load_state_dict(moments)
+        before = [p.detach().clone() for p in model.parameters()]
+        metrics = ds_train.make_step(cfg, model, opt)(ds2_batch_to(batch, device))
+        out[name] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                     "update": [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)],
+                     "params": [p.detach().cpu() for p in model.parameters()],
+                     "stats": [t.cpu() for t in running_stats(model)]}
+    a, b = out["card"], out["cpu"]
+    # float32 on both sides, sums in another order (cuDNN's convs and LSTM
+    # against the CPU's): the losses as phase 8 holds them (1e-4 relative),
+    # the gradient norm 1e-3; an update differs from the CPU's by the
+    # gradients' error through Adam's smooth quotient (1e-2 of the leaf's
+    # largest update); the running statistics carry the activations' error
+    # (1e-4 of the leaf's largest statistic)
+    update_err = max(((x - y).abs().max() / y.abs().max()).item()
+                     for x, y in zip(a["update"], b["update"]))
+    worst = max(range(len(names)), key=lambda i: ((a["update"][i] - b["update"][i]).abs().max()
+                                                  / b["update"][i].abs().max()).item())
+    errs = {
+        "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+        "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
+        "update": update_err,
+        "params_max_abs": max((x - y).abs().max().item() for x, y in zip(a["params"], b["params"])),
+        "stats": max(((x - y).abs().max() / y.abs().max()).item()
+                     for x, y in zip(a["stats"], b["stats"])),
+    }
+    tols = {"loss": 1e-4, "grad_norm": 1e-3, "update": 1e-2, "stats": 1e-4}
+    log(f"deepspeech2: one float32 step at full width, B=2, card (ctc kernels) vs CPU (plain): "
+        f"loss {a['loss']:.6f} vs {b['loss']:.6f}, grad_norm {a['grad_norm']:.4f} vs "
+        f"{b['grad_norm']:.4f}; errors "
+        + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]})" for k in tols)
+        + f"; worst update in {names[worst]}; parameters after the update within "
+        f"{errs['params_max_abs']:.3e} absolute")
+    if not all(errs[k] <= tols[k] for k in tols):
+        raise AssertionError(f"deepspeech2: card and CPU steps differ: {errs}")
+    return {"errors": errs, "tolerances": tols, "loss": [a["loss"], b["loss"]]}
+
+
+def deepspeech2_phase(ctc_dp):
+    """Phase 11: the DeepSpeech2 recipe (``mindaudio_torch/recipes/deepspeech2``)
+    as a user runs it, at the full width of ``deepspeech2.yaml``, on a
+    synthetic corpus in LibriSpeech's layout in a temporary directory:
+    ``train.main()`` with saves, ``eval.main()``, the step's time with cuDNN
+    TF32 off and on, and one float32 step against the CPU. Returns
+    ``(ctc launches, summary)``."""
+    import tempfile
+
+    from mindaudio_torch.recipes.deepspeech2 import dataset as ds
+    from mindaudio_torch.recipes.deepspeech2 import eval as ds_eval
+    from mindaudio_torch.recipes.deepspeech2 import synthetic
+    from mindaudio_torch.recipes.deepspeech2 import train as ds_train
+    from mindaudio_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ds2_") as root:
+        t = time.perf_counter()
+        train_json, test_json = synthetic.gen(root, n_train=DS2_BATCH, n_test=DS2_BATCH)
+        gen_s = time.perf_counter() - t
+        ckpt_dir = f"{root}/ckpt"
+        args = ["--data.train_manifest", train_json, "--data.test_manifest", test_json,
+                "--data.batch_size", str(DS2_BATCH), "--train.ckpt_dir", ckpt_dir,
+                "--train.max_steps", str(DS2_STEPS),
+                "--train.log_every_steps", "1", "--train.save_every_steps", str(DS2_SAVE_EVERY),
+                "--optim.epochs", str(-(-DS2_STEPS // 3))]
+        cfg, _ = ds_train.parse_args(args)
+        ctc_dp.ctc_dp_fwd.launches = ctc_dp.ctc_dp_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = ds_train.main(args)
+        train_s = time.perf_counter() - t
+        launches = (ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses, buckets = out["losses"], out["buckets"]
+        saved = checkpoint.list_steps(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{saved[-1]}",
+                                                  checkpoint.STATE_FILE))
+        final = checkpoint.restore_checkpoint(ckpt_dir)
+        log(f"deepspeech2: gen {3 * DS2_BATCH} + {DS2_BATCH} utterances {gen_s:.1f} s; train "
+            f"{out['steps']} steps {train_s:.1f} s at B={DS2_BATCH}, full width "
+            f"({sum(t.numel() for t in final['params'].values()) / 1e6:.2f} M params), float32; "
+            f"peak memory {peak_gib:.2f} GiB; steps saved {saved}, {ckpt_bytes} bytes a "
+            f"checkpoint with {len(final['buffers'])} running statistics")
+        log("deepspeech2: loss per step (bucket) " + " ".join(
+            f"{losses[s]:.2f} ({buckets[s]})" for s in sorted(losses)))
+        log(f"deepspeech2: ctc_dp_fwd launches {launches[0]}, ctc_dp_bwd launches {launches[1]} "
+            f"over {out['steps']} train steps (expected one each a step)")
+        first_bucket = buckets[1]
+        same = [s for s in sorted(losses) if buckets[s] == first_bucket]
+        if out["steps"] != DS2_STEPS or launches != (DS2_STEPS, DS2_STEPS):
+            raise AssertionError(f"deepspeech2: {out['steps']} steps, CTC launches {launches}")
+        if not np.isfinite(list(losses.values())).all():
+            raise AssertionError(f"deepspeech2: a loss is not finite: {losses}")
+        if set(buckets.values()) != {800, 1250, 2000} or len(same) < 2:
+            raise AssertionError(f"deepspeech2: buckets met {buckets}")
+        if not losses[same[-1]] < losses[same[0]]:
+            raise AssertionError(f"deepspeech2: the loss in the {first_bucket} bucket did not "
+                                 f"fall: {[losses[s] for s in same]}")
+        if saved != [DS2_SAVE_EVERY, DS2_STEPS] or int(final["step"]) != DS2_STEPS or len(
+                final["buffers"]) != 14:
+            raise AssertionError(f"deepspeech2: checkpoints {saved}, step {int(final['step'])}, "
+                                 f"{len(final['buffers'])} buffers")
+        del final
+
+        t = time.perf_counter()
+        result = ds_eval.main(args)
+        eval_s = time.perf_counter() - t
+        log(f"deepspeech2: eval of {result['utts']} test utterances (3500-frame bucket) "
+            f"{eval_s:.1f} s: CER {100 * result['cer']:.2f}% WER {100 * result['wer']:.2f}% "
+            "(not judged after 20 steps)")
+        if result["utts"] != DS2_BATCH or not 0 <= result["cer"] < float("inf"):
+            raise AssertionError(f"deepspeech2: eval {result}")
+
+        batch = next(b for _, b in ds.batch_iterator(train_json, DS2_BATCH, shuffle=False)
+                     if b["wavs"].shape[1] // ds.HOP == 1250)
+        timing = ds2_step_ms(ds_train, cfg, batch)
+        log(f"deepspeech2: ms per step at B={DS2_BATCH} x 1250 frames (T' = 626; host clock, "
+            f"{DS2_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
+            f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f}; "
+            f"recipe log windows {' / '.join(f'{v:.1f}' for v in out['window_ms'])}")
+    check = ds2_card_against_cpu(ds_train, cfg)
+    torch.cuda.empty_cache()
+    return launches, {"steps": out["steps"], "losses": losses, "buckets": buckets,
+                      "window_ms": out["window_ms"], "step_ms_1250": timing,
+                      "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes, "eval": result,
+                      "card_against_cpu": check}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1415,6 +1643,15 @@ def main():
             f"{r['chain_steps']} "
             f"{r['fwd_us_per_step']:.4f} {r['bwd_us_per_step']:.4f}; F.ctc_loss vs kernel "
             f"max abs err {r['library_max_abs_err']:.3e}")
+    block_us = ladder["variants"]["d"]["us_per_step"]
+    for name in CTC_TIMED:
+        r = ctc_results[name]
+        if r["plan"]["path"] == "block":  # DeepSpeech2's S = 701
+            r["block_floor_ms"] = r["chain_steps"] * block_us / 1e3
+            log(f"  {name}: block path, {r['plan']['threads']} threads a sequence; steps at "
+                f"ladder rung (d) {block_us:.4f} us: {r['block_floor_ms']:.4f} ms; kernel / "
+                f"F.ctc_loss fwd {r['fwd_ms'] / r['library_fwd_ms']:.3f}, bwd "
+                f"{r['bwd_ms'] / r['library_bwd_ms']:.3f}")
 
     # 6. fused log-mel kernel against its plain version, then its entry point
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1509,6 +1746,10 @@ def main():
     stream, stream_results = streaming_phase(quant, wav_np, frames)
     stream_launches = sum(r["launches"] for r in stream["runs"].values())
 
+    # 11. the DeepSpeech2 recipe at full width: the CTC pair on its block path
+    ds2_launches, ds2 = deepspeech2_phase(ctc_dp)
+    ds2_ctc = {name: ctc_results[name] for name in CTC_TIMED if name.startswith("deepspeech2")}
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -1537,6 +1778,7 @@ def main():
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["fwd_us_per_step"], "floor_us_per_step": floor_us,
         "plan": flagship["plan"], "recipe_launches": recipe_launches[0], "recipe": recipe,
+        "deepspeech2_launches": ds2_launches[0], "deepspeech2": ds2, "deepspeech2_ctc": ds2_ctc,
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
@@ -1548,7 +1790,8 @@ def main():
         "library_ms": flagship["library_bwd_ms"], "shape": flagship["shape"],
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
-        "recipe_launches": recipe_launches[1], "card": card,
+        "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
+        "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",

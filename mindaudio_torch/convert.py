@@ -9,8 +9,13 @@ change layout as PyTorch wants it:
 - Dense ``kernel`` ``(in, out)`` → ``Linear.weight`` ``(out, in)``;
 - Conv2d ``kernel`` HWIO → OIHW;
 - depthwise Conv1d ``kernel`` ``(k, 1, C)`` → ``(C, 1, k)``;
-- LayerNorm ``scale`` → ``weight``; Embed ``embedding`` → ``weight``;
-- ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across.
+- LayerNorm and BatchNorm ``scale`` → ``weight``; Embed ``embedding`` →
+  ``weight``;
+- DeepSpeech2's BiLSTM ``wx (2, D, 4H)`` / ``wh (2, H, 4H)`` →
+  ``weight_ih (2, 4H, D)`` / ``weight_hh (2, 4H, H)``;
+- ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across;
+- with ``batch_stats``, a batch norm's ``mean``/``var`` → its
+  ``running_mean``/``running_var`` buffers.
 
 The AdamW moments have the parameters' tree, so :func:`convert_adamw_state`
 carries an optax state across by the same rules.
@@ -50,19 +55,29 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def convert_params(params):
-    """Nested dict of arrays (``model.init(...)["params"]``) → float32
-    ``state_dict`` tensors (CPU) keyed by the port's parameter names."""
+_LSTM = {"wx": "weight_ih", "wh": "weight_hh"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def convert_params(params, batch_stats=None):
+    """Nested dict of arrays (``model.init(...)["params"]``, and optionally
+    its ``"batch_stats"``) → float32 ``state_dict`` tensors (CPU) keyed by the
+    port's parameter and buffer names."""
     state = {}
-    for path, leaf in _flatten(params):
+    leaves = list(_flatten(params))
+    if batch_stats is not None:
+        leaves += [(path[:-1] + (_STATS[path[-1]],), leaf) for path, leaf in _flatten(batch_stats)]
+    for path, leaf in leaves:
         arr = np.asarray(leaf, dtype=np.float32)
         *mod, leaf_name = path
         if leaf_name == "kernel":
             arr, leaf_name = arr.transpose(_KERNEL_LAYOUT[arr.ndim]), "weight"
+        elif leaf_name in _LSTM:
+            arr, leaf_name = arr.transpose(0, 2, 1), _LSTM[leaf_name]
         elif leaf_name in ("scale", "embedding"):
             leaf_name = "weight"
         key = ".".join(filter(None, (module_name(mod), leaf_name)))
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        state[key] = torch.from_numpy(np.array(arr, order="C"))
     return state
 
 

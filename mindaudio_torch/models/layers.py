@@ -7,7 +7,9 @@ Conventions, as in the JAX package:
 - the compute dtype is the parameters' dtype (cast them to bf16 for bf16
   serving); softmax runs in float32 and position tables stay float32
   buffers that are cast at use;
-- LayerNorm epsilon is flax's 1e-6, not PyTorch's 1e-5.
+- LayerNorm epsilon is flax's 1e-6, not PyTorch's 1e-5;
+- :class:`BatchNorm` computes as flax's ``nn.BatchNorm`` does (biased
+  variance, ``momentum`` weighting the old statistics), not as PyTorch's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ __all__ = [
     "Swish",
     "GLU",
     "GlobalCMVN",
+    "BatchNorm",
+    "running_stats",
     "PositionwiseFeedForward",
     "MultiHeadedAttention",
     "RelPositionMultiHeadedAttention",
@@ -109,6 +113,50 @@ class GlobalCMVN(nn.Module):
 
     def forward(self, x):
         return (x - self.mean.to(x.dtype)) * self.istd.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalization over every axis but the last, as flax's
+    ``nn.BatchNorm(momentum=...)`` computes it.
+
+    In training the batch statistics are float32, ``mean = E[x]`` and the
+    *biased* ``var = max(E[x^2] - E[x]^2, 0)`` over every position given
+    (padding included: there is no mask), and the running statistics become
+    ``momentum * old + (1 - momentum) * batch`` with that same variance
+    (``torch.nn.BatchNorm*`` takes the unbiased one and names the momentum
+    the other way round). In eval the running statistics are used. The
+    output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32.
+    ``running_mean``/``running_var`` are flax's ``batch_stats`` ``mean`` and
+    ``var``; there is no ``num_batches_tracked``.
+    """
+
+    def __init__(self, features, momentum=0.9, eps=1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        x = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp_min(x.square().mean(axes) - mean.square(), 0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def running_stats(module):
+    """The running-statistic buffers of every :class:`BatchNorm` in
+    ``module`` (a training step updates them in place)."""
+    return [b for m in module.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
 
 
 class PositionwiseFeedForward(nn.Module):

@@ -1,4 +1,5 @@
-"""Kaldi log-mel front-end on the device (port of ``mindaudio_tpu.ops.spectral``).
+"""Spectral front-ends on the device (port of ``mindaudio_tpu.ops.spectral``):
+the Kaldi log-mel fbank, the STFT and the magnitude/power spectrogram.
 
 The DFT is a matmul against a cached cos/sin basis, as in the JAX package:
 at n_fft = 512 two ``(frames, 512) @ (512, 257)`` products are cheaper to
@@ -19,7 +20,7 @@ import torch
 from .. import check_generator, resolve_device
 from .filterbanks import get_window, kaldi_mel_banks
 
-__all__ = ["frame_signal", "kaldi_fbank"]
+__all__ = ["frame_signal", "stft", "spectrogram", "kaldi_fbank"]
 
 LOG_FLOOR = 1.1920928955078125e-07  # float32 machine epsilon, as kaldi
 
@@ -31,6 +32,96 @@ def _raw_dft(n_fft):
     freqs = np.arange(n_fft // 2 + 1)[None, :]
     angle = -2.0 * np.pi * n * freqs / n_fft
     return np.cos(angle).astype(np.float32), np.sin(angle).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def dft_matrices(n_fft, win_length, window, hop_length):
+    """The (window ⊙ rDFT) cos/sin matrices ``(K * hop, n_fft//2+1)``, float32
+    numpy, ``K = ceil(n_fft / hop)``: the window of ``win_length`` centred in
+    ``n_fft`` (periodic, ``get_window(..., fftbins=True)``), and zero rows in
+    ``[n_fft, K*hop)`` so that :func:`frame_signal`'s frames need no mask."""
+    n_freq = n_fft // 2 + 1
+    width = math.ceil(n_fft / hop_length) * hop_length
+    win = np.zeros(n_fft)
+    lpad = (n_fft - win_length) // 2
+    win[lpad: lpad + win_length] = get_window(window, win_length, fftbins=True)
+    angle = -2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_freq)[None, :] / n_fft
+    wr, wi = np.zeros((width, n_freq)), np.zeros((width, n_freq))
+    wr[:n_fft] = np.cos(angle) * win[:, None]
+    wi[:n_fft] = np.sin(angle) * win[:, None]
+    return wr.astype(np.float32), wi.astype(np.float32)
+
+
+def _num_frames(n_samples, n_fft, hop_length, center):
+    if center:
+        return 1 + n_samples // hop_length
+    return 1 + (n_samples - n_fft) // hop_length
+
+
+def _pad_signal(x, n_fft, center, pad_mode):
+    """Centre padding by ``n_fft // 2`` on both sides (``pad_mode``
+    "constant" is zeros, "reflect" mirrors without the edge sample)."""
+    if not center:
+        return x
+    half = n_fft // 2
+    if pad_mode == "constant":
+        return torch.nn.functional.pad(x, (half, half))
+    shape = x.shape
+    x = torch.nn.functional.pad(x.reshape(-1, 1, shape[-1]), (half, half), mode=pad_mode)
+    return x.reshape(shape[:-1] + (x.shape[-1],))
+
+
+def _windowed_dft(waveforms, n_fft, win_length, hop_length, window, center, pad_mode):
+    """``(real, imag)`` of the framed, windowed DFT, each ``(..., n_frames, n_freq)``."""
+    x = waveforms.to(torch.float32)
+    n_frames = _num_frames(x.shape[-1], n_fft, hop_length, center)
+    frames = frame_signal(_pad_signal(x, n_fft, center, pad_mode), n_fft, hop_length, n_frames)
+    wr, wi = (torch.as_tensor(m, device=x.device)
+              for m in dft_matrices(n_fft, win_length, window, hop_length))
+    return frames @ wr, frames @ wi
+
+
+def stft(waveforms, n_fft=512, win_length=None, hop_length=None, window="hann", center=True,
+         pad_mode="constant", device="cuda"):
+    """STFT of ``(..., T)`` as ``(..., n_freq, n_frames, 2)`` (real, imag),
+    librosa conventions (``mindaudio_tpu.ops.spectral.stft``). A tensor
+    input is moved to ``device``."""
+    win_length = win_length or n_fft
+    hop_length = hop_length or win_length // 4
+    x = torch.as_tensor(waveforms, device=resolve_device(device))
+    real, imag = _windowed_dft(x, n_fft, win_length, hop_length, window, center, pad_mode)
+    return torch.stack((real.transpose(-1, -2), imag.transpose(-1, -2)), dim=-1)
+
+
+def _power_frames(waveforms, n_fft, win_length, hop_length, window, center, pad_mode, power):
+    """``|STFT| ** power`` time-major, ``(..., n_frames, n_freq)``, float32,
+    on the waveforms' device; the power spectrum is floored at 1e-30 before
+    a fractional power, as in the JAX package."""
+    real, imag = _windowed_dft(waveforms, n_fft, win_length, hop_length, window, center,
+                               pad_mode)
+    p = real * real + imag * imag
+    if power == 2.0:
+        return p
+    if power == 1.0:
+        return torch.sqrt(torch.clamp_min(p, 1e-30))
+    return torch.pow(torch.clamp_min(p, 1e-30), power / 2.0)
+
+
+def spectrogram(waveforms, n_fft=400, win_length=None, hop_length=None, pad=0, window="hann",
+                power=2.0, normalized=False, center=True, pad_mode="reflect", device="cuda"):
+    """torchaudio-convention spectrogram ``(..., n_freq, n_frames)``
+    (``mindaudio_tpu.ops.spectral.spectrogram``). A tensor input is moved to
+    ``device``."""
+    win_length = win_length or n_fft
+    hop_length = hop_length or win_length // 2
+    x = torch.as_tensor(waveforms, device=resolve_device(device))
+    if pad > 0:
+        x = torch.nn.functional.pad(x, (pad, pad))
+    p = _power_frames(x, n_fft, win_length, hop_length, window, center, pad_mode, power)
+    if normalized:
+        w = get_window(window, win_length, fftbins=True)
+        p = p / float(np.sqrt(np.sum(w**2)) ** power)
+    return p.transpose(-1, -2)
 
 
 def frame_signal(x, n_fft, hop_length, n_frames):

@@ -25,7 +25,6 @@ import argparse
 import os
 import time
 
-import numpy as np
 import torch
 
 from ... import resolve_device
@@ -37,7 +36,7 @@ from ...train.checkpoint import CheckpointManager, list_steps, restore_checkpoin
 from ...train.config import get_config
 from ...train.log import get_logger
 from ...train.optim import AdamW
-from ...train.prefetch import prefetch
+from ...train.prefetch import ToDevice, prefetch
 from ...train.state import make_train_step
 from ...utils.cmvn import load_cmvn
 from ...utils.tokenizer import CharTokenizer
@@ -166,12 +165,13 @@ def make_step(cfg, model, optimizer, generators):
     step (``batch -> (loss, metrics)``: no dither, no SpecAugment, the model
     in ``eval()`` and back in ``train()`` after)."""
     dtype = torch.bfloat16 if cfg.optim.bf16 else None
+    # a dynamic-chunk model samples its chunk masks from the features' generator
+    chunks = generators["features"] if cfg.model.get("use_dynamic_chunk", False) else None
     step = make_train_step(
         model, optimizer,
         lambda b: device_features(cfg, b["wavs"], b["wav_lens"], generators["features"]),
         grad_clip_norm=cfg.optim.grad_clip, autocast_dtype=dtype,
-        chunk_generator=(generators["features"] if cfg.model.get("use_dynamic_chunk", False)
-                         else None))
+        loss_fn=lambda m, b: m(b, chunk_generator=chunks))
 
     @torch.no_grad()
     def eval_step(batch):
@@ -187,69 +187,22 @@ def make_step(cfg, model, optimizer, generators):
     return step, eval_step
 
 
-class ToDevice:
-    """The prefetch transform: a numpy batch to tensors on ``device``.
-
-    On CUDA the arrays are pinned and copied with ``non_blocking=True`` on a
-    side stream, from the prefetch worker thread, and an event is recorded
-    on that stream after the copies. :meth:`ready` makes the consuming
-    stream wait on that event (on the device; the host does not block) and
-    calls ``record_stream`` on each tensor, so that the caching allocator
-    does not hand its memory to another tensor while the consuming stream
-    may still read it. Integer arrays other than the int16 audio become
-    int64, as the model takes them.
-    """
-
-    def __init__(self, device):
-        self.device = device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-
-    @staticmethod
-    def _host(batch):
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = t.long() if t.dtype == torch.int32 else t
-        return out
-
-    def __call__(self, item):
-        epoch, frames, batch = item
-        host = self._host(batch)
-        if self.stream is None:
-            return epoch, frames, (host, None)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            dev = {k: v.pin_memory().to(self.device, non_blocking=True) for k, v in host.items()}
-            copied = torch.cuda.Event()
-            copied.record(self.stream)
-        return epoch, frames, (dev, copied)
-
-    def ready(self, staged):
-        """The batch of ``staged`` (a :meth:`__call__` result's last part),
-        safe to use on the current stream."""
-        batch, copied = staged
-        if copied is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(copied)
-            for t in batch.values():
-                t.record_stream(current)
-        return batch
-
-
-def checkpoint_state(model, optimizer, generators):
+def checkpoint_state(model, optimizer, generators, step):
     """What a checkpoint holds: params, AdamW state (``count``, ``mu``,
-    ``nu``), the global step and the generators' states."""
+    ``nu``), the global step ``step`` (the batches consumed; AdamW's count
+    leaves out skipped ones) and the generators' states."""
     return {"params": dict(model.named_parameters()), "opt_state": optimizer.state_dict(),
-            "step": optimizer.count.clone(),
+            "step": torch.tensor(step, dtype=torch.int32),
             "rng": {k: g.get_state() for k, g in generators.items()}}
 
 
 def restore_state(ckpt, model, optimizer, generators):
+    """Load a :func:`checkpoint_state`; returns its global step."""
     load_params(model, ckpt["params"])
     optimizer.load_state_dict(ckpt["opt_state"])
-    if int(ckpt["step"]) != int(ckpt["opt_state"]["count"]):
-        raise ValueError("checkpoint: step and AdamW count differ")
     for k, g in generators.items():
         g.set_state(ckpt["rng"][k])
+    return int(ckpt["step"])
 
 
 def main(argv=None):
@@ -270,12 +223,15 @@ def main(argv=None):
     optimizer = make_optimizer(cfg, model)
 
     # resume: params, AdamW state, step and generators from the latest
-    # checkpoint; the schedule reads AdamW's count, so it continues there
+    # checkpoint; the schedule reads AdamW's count, so it continues there.
+    # Checkpoints are named (and max_steps counted) by the global step, so a
+    # resumed run neither renames nor overwrites the steps before it
+    start_step = 0
     if bool(cfg.train.get("resume", False)) and list_steps(cfg.train.ckpt_dir):
         step_dir = list_steps(cfg.train.ckpt_dir)[-1]
         logger.info("restoring from %s (step %d)", cfg.train.ckpt_dir, step_dir)
-        restore_state(restore_checkpoint(cfg.train.ckpt_dir, step_dir), model, optimizer,
-                      generators)
+        start_step = restore_state(restore_checkpoint(cfg.train.ckpt_dir, step_dir), model,
+                                   optimizer, generators)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("params: %.1fM", n_params / 1e6)
     step_fn, eval_fn = make_step(cfg, model, optimizer, generators)
@@ -304,9 +260,6 @@ def main(argv=None):
     it = batch_iterator(cfg.data.train_csv, tokenizer, epochs=int(cfg.optim.epochs),
                         speed_perturb=bool(cfg.data.speed_perturb), **loader)
 
-    # checkpoints are named (and max_steps counted) by the global step, so a
-    # resumed run neither renames nor overwrites the steps before it
-    start_step = int(optimizer.count)
     first_lr = float(optimizer.lr(optimizer.count))
     step_count, dev_losses, window_ms = 0, {}, []
     metrics = step_fn(to_device.ready(to_device(next(it))[2]))
@@ -328,13 +281,13 @@ def main(argv=None):
         if step_count % save_every == 0:
             dev_losses[gstep] = eval_loss()
             logger.info("eval @ step %d: dev loss %.4f", gstep, dev_losses[gstep])
-            ckpt.save(checkpoint_state(model, optimizer, generators), gstep,
+            ckpt.save(checkpoint_state(model, optimizer, generators, gstep), gstep,
                       eval_metric=dev_losses[gstep])
             window = (time.perf_counter(), step_count)
         if max_steps and gstep >= max_steps:
             break
     final = start_step + step_count
-    ckpt.save(checkpoint_state(model, optimizer, generators), final)
+    ckpt.save(checkpoint_state(model, optimizer, generators, final), final)
     logger.info("done: %d steps (global %d)", step_count, final)
     return {"start_step": start_step, "first_lr": first_lr, "steps": step_count,
             "final_step": final, "window_ms": window_ms, "dev_losses": dev_losses}

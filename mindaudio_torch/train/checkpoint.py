@@ -1,8 +1,9 @@
 """Checkpoints: save, restore, average, retain (port of
 ``mindaudio_tpu.train.checkpoint``).
 
-A checkpoint is a nested dict of tensors (the recipe's: ``params``,
-``opt_state`` with ``count``/``mu``/``nu``, ``step``, ``dropout_rng``)
+A checkpoint is a nested dict of tensors (the Conformer recipe's: ``params``,
+``opt_state`` with ``count``/``mu``/``nu``, ``step``, ``rng``; DeepSpeech2's
+adds the batch norms' running statistics, :func:`model_state`)
 written with ``torch.save`` as ``<directory>/step_<n>/state.pt``, the JAX
 package's directory layout. A save writes into ``step_<n>.tmp-<pid>`` and
 renames it, so a save that is killed leaves no ``step_*`` directory behind;
@@ -23,6 +24,8 @@ import torch
 from .log import process_rank
 
 __all__ = [
+    "model_state",
+    "load_model_state",
     "save_checkpoint",
     "restore_checkpoint",
     "average_checkpoints",
@@ -47,6 +50,28 @@ def _map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def model_state(model):
+    """``{"params": {name: parameter}, "buffers": {name: buffer}}`` of
+    ``model``: its parameters and persistent buffers (a batch norm's running
+    statistics, flax's ``batch_stats``), by their names."""
+    params = dict(model.named_parameters())
+    state = model.state_dict(keep_vars=True)
+    return {"params": params, "buffers": {k: v for k, v in state.items() if k not in params}}
+
+
+@torch.no_grad()
+def load_model_state(model, state):
+    """Copy a :func:`model_state` (as saved, on any device) into ``model``;
+    the names must be the model's."""
+    mine = model_state(model)
+    for key in ("params", "buffers"):
+        if set(mine[key]) != set(state[key]):
+            raise KeyError(f"checkpoint {key} differ from the model's: "
+                           f"{sorted(set(mine[key]) ^ set(state[key]))[:8]}")
+        for name, t in mine[key].items():
+            t.copy_(state[key][name])
 
 
 def save_checkpoint(directory, state, step):

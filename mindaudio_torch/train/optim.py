@@ -73,9 +73,10 @@ class AdamW:
         """One update from ``grads`` (a list aligned with the parameters).
 
         ``ok`` is an optional boolean device scalar. Where it is False the
-        parameters and both moments keep their values exactly and only the
-        count advances: the gradients are replaced by zeros and the decay
-        rates by 1, and the learning rate by 0, all selected on the device.
+        parameters, both moments and the count keep their values exactly, as
+        optax's state does when the JAX package skips a step: the gradients
+        are replaced by zeros, the decay rates by 1 and the learning rate by
+        0, and the count advances by ``ok``, all selected on the device.
         """
         lr = self._lr()
         (b1, g1), (b2, g2) = self._b1, self._b2
@@ -85,7 +86,7 @@ class AdamW:
             b1, b2 = torch.where(ok, b1, 1.0), torch.where(ok, b2, 1.0)
             g1, g2 = torch.where(ok, g1, 0.0), torch.where(ok, g2, 0.0)
             lr = torch.where(ok, lr, 0.0)
-        self.count += 1
+        self.count += 1 if ok is None else ok.to(self.count.dtype)
 
         # optax forms b1 * m in the stored moment's dtype (its Python-float
         # decay takes the array's type), then adds (1 - b1) * g in float32

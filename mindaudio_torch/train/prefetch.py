@@ -1,8 +1,8 @@
 """Background batch prefetching (port of ``mindaudio_tpu.train.prefetch``).
 
-A worker thread runs the batch iterator (and a ``transform``, typically the
-copy to the card) while the training loop runs the previous step, through a
-small queue.
+A worker thread runs the batch iterator (and a ``transform``, typically
+:class:`ToDevice`, the copy to the card) while the training loop runs the
+previous step, through a small queue.
 """
 
 from __future__ import annotations
@@ -11,7 +11,10 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
-__all__ = ["prefetch"]
+import numpy as np
+import torch
+
+__all__ = ["prefetch", "ToDevice"]
 
 _SENTINEL = object()
 
@@ -72,3 +75,53 @@ def prefetch(iterator: Iterable, size: int = 2,
                 q.get_nowait()
         except queue.Empty:
             pass
+
+
+class ToDevice:
+    """The prefetch transform: the numpy batch that ends an iterator's item
+    (a tuple whose last element is a dict of arrays) to tensors on ``device``.
+
+    On CUDA the arrays are pinned and copied with ``non_blocking=True`` on a
+    side stream, from the prefetch worker thread, and an event is recorded
+    on that stream after the copies. :meth:`ready` makes the consuming
+    stream wait on that event (on the device; the host does not block) and
+    calls ``record_stream`` on each tensor, so that the caching allocator
+    does not hand its memory to another tensor while the consuming stream
+    may still read it. Integer arrays other than the int16 audio become
+    int64, as the models take them.
+    """
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    @staticmethod
+    def _host(batch):
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.long() if t.dtype == torch.int32 else t
+        return out
+
+    def __call__(self, item):
+        """``item`` with its last element replaced by the staged batch."""
+        *head, batch = item
+        host = self._host(batch)
+        if self.stream is None:
+            return (*head, (host, None))
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            dev = {k: v.pin_memory().to(self.device, non_blocking=True) for k, v in host.items()}
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        return (*head, (dev, copied))
+
+    def ready(self, staged):
+        """The batch of ``staged`` (a :meth:`__call__` result's last part),
+        safe to use on the current stream."""
+        batch, copied = staged
+        if copied is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(copied)
+            for t in batch.values():
+                t.record_stream(current)
+        return batch

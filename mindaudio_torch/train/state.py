@@ -2,10 +2,11 @@
 
 One step is: features, forward and loss under bf16 autocast (float32
 parameters, float32 losses), gradients, global-norm clipping, and an AdamW
-update that a non-finite loss or gradient turns into a no-op. The decision
-stays on the device: nothing in a step reads a value back to the host, so
-steps queue up behind each other and the caller synchronises when it reads a
-metric.
+update that a non-finite loss or gradient turns into a no-op, for the
+parameters, the moments and the batch norms' running statistics that the
+forward updated. The decision stays on the device: nothing in a step reads a
+value back to the host, so steps queue up behind each other and the caller
+synchronises when it reads a metric.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from ..models.layers import running_stats
 
 __all__ = ["clip_by_global_norm", "skip_nonfinite_update", "make_train_step"]
 
@@ -32,24 +35,31 @@ def clip_by_global_norm(grads, max_norm):
     return torch._foreach_mul(grads, scale), gnorm
 
 
-def skip_nonfinite_update(optimizer, loss, grads):
+def skip_nonfinite_update(optimizer, loss, grads, stats=()):
     """Apply ``optimizer.step(grads)`` unless the loss or any gradient leaf is
     non-finite; returns the flag ``ok`` as a boolean device scalar.
 
-    On a bad batch the parameters and both moments keep their old values and
-    the step count still advances, so the schedule stays aligned with the data
-    consumed. The flag is never read on the host: the optimizer selects with
-    it on the device.
+    On a bad batch the parameters, both moments and the optimizer's count
+    keep their old values, as the JAX package keeps its old optax state (so
+    the schedule and the bias correction read the count of the updates
+    made; a recipe counts the batches consumed in a global step of its
+    own). ``stats`` are ``(tensor, old value)`` pairs, the running
+    statistics the forward updated in place: on a bad batch each tensor gets
+    its old value back (the JAX package reverts ``batch_stats`` with the
+    rest of its state). The flag is never read on the host: the optimizer
+    selects with it on the device.
     """
     # the largest magnitude of a leaf is finite exactly when every element is
     peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
     ok = torch.isfinite(loss) & torch.isfinite(peaks).all()
     optimizer.step(grads, ok=ok)
+    for new, old in stats:
+        new.copy_(torch.where(ok, new, old))
     return ok
 
 
 def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
-                    autocast_dtype=None, chunk_generator=None):
+                    autocast_dtype=None, loss_fn=None):
     """Build ``step(batch) -> metrics`` for ``model(batch) -> (loss, metrics)``.
 
     Args:
@@ -62,19 +72,25 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
         autocast_dtype: e.g. ``torch.bfloat16`` for the model's products
             (parameters and gradients stay float32); ``None`` computes in the
             parameters' dtype.
-        chunk_generator: passed to ``model(batch, chunk_generator=...)``: a
-            dynamic-chunk model samples its chunk masks from it (without
-            one it trains with full context).
+        loss_fn: optional ``(model, batch) -> (loss, metrics)`` called in
+            place of ``model(batch)`` (e.g. to pass a dynamic-chunk model the
+            generator it samples its chunk masks from).
 
     Returns:
         ``step``; its metrics (``loss``, the model's own, ``grad_norm``) are
         device scalars, detached. A batch with a non-finite loss or gradient
-        is skipped (:func:`skip_nonfinite_update`).
+        is skipped (:func:`skip_nonfinite_update`), the model's batch-norm
+        running statistics included.
     """
     params = optimizer.params
     device_type = params[0].device.type
+    stats = running_stats(model)
+    if loss_fn is None:
+        def loss_fn(model, batch):
+            return model(batch)
 
     def step(batch):
+        old_stats = [s.clone() for s in stats]  # the forward updates them in place
         if features_fn is not None:
             with torch.no_grad():
                 feats, feat_lens = features_fn(batch)
@@ -82,14 +98,14 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
         autocast = (torch.autocast(device_type, dtype=autocast_dtype)
                     if autocast_dtype is not None else contextlib.nullcontext())
         with autocast:
-            loss, metrics = model(batch, chunk_generator=chunk_generator)
+            loss, metrics = loss_fn(model, batch)
         grads = list(torch.autograd.grad(loss, params, allow_unused=True,
                                          materialize_grads=True))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         if grad_clip_norm is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip_norm)
-        skip_nonfinite_update(optimizer, metrics["loss"], grads)
+        skip_nonfinite_update(optimizer, metrics["loss"], grads, zip(stats, old_stats))
         return metrics
 
     return step

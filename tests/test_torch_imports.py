@@ -50,7 +50,9 @@ def test_the_recipes_are_scanned():
     recipes = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if "recipes" in p.parts}
     assert {f"mindaudio_torch/recipes/conformer/{m}.py" for m in (
         "dataset", "train", "predict", "compute_cmvn_stats", "convergence_run")} <= recipes
-    assert {"dataset", "train", "predict", "examples"} <= FORBIDDEN
+    assert {f"mindaudio_torch/recipes/deepspeech2/{m}.py" for m in (
+        "dataset", "train", "eval", "synthetic")} <= recipes
+    assert {"dataset", "train", "predict", "eval", "examples"} <= FORBIDDEN
 
 
 def test_every_module_imports_without_cuda():

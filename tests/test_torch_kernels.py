@@ -144,6 +144,7 @@ def test_int8_matmul_rejects_what_the_kernel_does_not_take():
         tq.int8_matmul(x, v.cpu(), s)
 
 
+_DS2 = np.random.default_rng(626)
 CTC_CASES = {
     # name: (B, T, L, V, logit lengths, label lengths, blank)
     "flagship": (32, 256, 20, 4233, None, None, 0),
@@ -172,6 +173,10 @@ CTC_CASES = {
     "t_shorter_than_a_chunk": (3, 13, 4, 9, None, None, 0),
     "zero_length_beside_full_length": (4, 40, 8, 15, [40, 0, 40, 21], [8, 3, 0, 5], 0),
     "lengths_differ_per_row": (4, 50, 12, 30, [50, 33, 41, 26], [12, 7, 10, 3], 0),
+    # DeepSpeech2's train step at the 1250-frame bucket: labels padded to 350
+    # (S = 701, the block path), 29 characters with the blank last, ragged
+    "deepspeech2_block_path": (64, 626, 350, 29, [626] + _DS2.integers(469, 627, 63).tolist(),
+                               [350] + _DS2.integers(80, 351, 63).tolist(), 28),
 }
 
 

@@ -300,7 +300,7 @@ def test_resume_restores_params_and_adamw_moments(corpus, tmp_path, monkeypatch)
         optimizer.count.fill_(3)
     for gen in gens.values():
         torch.rand(5, generator=gen)
-    tckpt.save_checkpoint(ckpt_dir, ttrain.checkpoint_state(model, optimizer, gens), 3)
+    tckpt.save_checkpoint(ckpt_dir, ttrain.checkpoint_state(model, optimizer, gens, 3), 3)
     saved = tckpt.restore_checkpoint(ckpt_dir, 3)
 
     class Restored(Exception):
@@ -312,7 +312,7 @@ def test_resume_restores_params_and_adamw_moments(corpus, tmp_path, monkeypatch)
         fresh = optimizer.state_dict()
         assert not any(torch.equal(fresh["mu"][n], saved["opt_state"]["mu"][n])
                        for n in fresh["mu"])
-        real(ckpt, model, optimizer, generators)
+        assert real(ckpt, model, optimizer, generators) == 3
         for name, p in model.named_parameters():
             assert torch.equal(p, saved["params"][name]), name
         got = optimizer.state_dict()
@@ -397,6 +397,7 @@ def test_make_train_step_passes_the_chunk_generator():
              "ys_out": torch.tensor([[3, 4, 11], [5, 11, -1]]), "ys_lens": torch.tensor([3, 2])}
     chunks = torch.Generator().manual_seed(1)
     before = chunks.get_state()
-    step = make_train_step(model, AdamW(model.named_parameters(), 1e-3), chunk_generator=chunks)
+    step = make_train_step(model, AdamW(model.named_parameters(), 1e-3),
+                           loss_fn=lambda m, b: m(b, chunk_generator=chunks))
     assert torch.isfinite(step(batch)["loss"])
     assert not torch.equal(chunks.get_state(), before)  # the chunk size was drawn from it
