@@ -121,7 +121,28 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    step at full width (B = 2) on the card against the CPU's plain versions
    from the same weights and AdamW state: loss, gradient norm, each
    parameter's update and the running statistics, against stated
-   tolerances.
+   tolerances;
+12. the ECAPA-TDNN recipe (``mindaudio_torch/recipes/ecapa_tdnn``) as a user
+   runs it, at the full width of ``ecapatdnn.yaml`` (channels 512 x 4 and
+   1536, Res2Net scale 8, embedding 192, 6.21 M parameters with 32
+   speakers, 31 batch norms, float32): write the convergence corpus
+   (``convergence_run.make_corpus``: 32 speakers, 12 train, 2 enrol and 2
+   test utterances each, 4-8 s), ``train_speaker_embeddings.main()`` for 20
+   steps at B = 192 x 3 s crops with augmentation on and a save at step 20
+   (the learning rate peaking at 1e-3 at step 10), then
+   ``speaker_verification_cosine.main()`` without and with adaptive s-norm
+   (EERs printed, not judged). Every loss must be finite, the last below the
+   first, no running statistic NaN, the checkpoint must restore to the
+   trained model's embeddings, and none of the port's kernels may launch
+   (the path has no TPU kernel: its fbank is plain PyTorch). Prints the
+   recipe's ms per step (the host's collate and augmentation in the
+   prefetch thread), the host's collate and augmentation ms per batch
+   measured apart, ms per step on one batch with cuDNN's TF32 off and on,
+   the peak memory, the bytes of a checkpoint and the embedding ms of a 16
+   x 8 s bucket batch; then holds one float32 step at full width (B = 2,
+   TF32 off) on the card against the CPU (loss, gradient norm, each
+   parameter's update, the 62 running statistics) and one bucket batch's
+   embeddings, against stated tolerances.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -164,6 +185,11 @@ LOGMEL_BATCH, LOGMEL_SAMPLES, LOGMEL_CALLS = 128, 160000, 8  # the log-mel bench
 # epoch) and decodes 64 test utterances in the 3500 bucket
 DS2_BATCH, DS2_VOCAB, DS2_LABELS = 64, 29, 350
 DS2_STEPS, DS2_SAVE_EVERY, DS2_TIMED_STEPS = 20, 10, 10
+# ECAPA-TDNN (recipes/ecapa_tdnn/ecapatdnn.yaml, full width, 3 s crops):
+# phase 12 writes 32 speakers x (12 train + 2 enrol + 2 test) utterances,
+# two batches of 192 an epoch, and trains 20 steps with a save at the last
+ECAPA_SPEAKERS, ECAPA_TRAIN, ECAPA_EVAL = 32, 12, 2
+ECAPA_BATCH, ECAPA_STEPS, ECAPA_TIMED_STEPS, ECAPA_HOST_BATCHES = 192, 20, 10, 3
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -1393,6 +1419,273 @@ def deepspeech2_phase(ctc_dp):
                       "card_against_cpu": check}
 
 
+def ecapa_step_ms(tse, cfg, n_classes, batch):
+    """ms per ECAPA-TDNN train step at full width on one fixed batch (host
+    clock, ``ECAPA_TIMED_STEPS`` steps after two warm-up steps, ending in the
+    loss's read-back), with cuDNN's TF32 off and then on; the matrix
+    products' TF32 stays off (PyTorch's default)."""
+    model = tse.build_model(cfg, "cuda", n_classes).train()
+    step = tse.make_step(cfg, model, tse.make_optimizer(cfg, model))
+    dev = {"wavs": torch.from_numpy(batch["wavs"]).cuda(),
+           "labels": torch.from_numpy(batch["labels"]).long().cuda()}
+    out = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for _ in range(2):
+                step(dev)
+            float(step(dev)["loss"])
+            t = time.perf_counter()
+            for _ in range(ECAPA_TIMED_STEPS):
+                metrics = step(dev)
+            loss = float(metrics["loss"])
+            out["tf32_on" if tf32 else "tf32_off"] = {
+                "ms": 1e3 * (time.perf_counter() - t) / ECAPA_TIMED_STEPS, "loss": loss}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def ecapa_host_ms(ds, cfg):
+    """The host's ms per batch of ``ECAPA_BATCH``, measured apart from the
+    card: the collate (WAV reads and random crops) and the augmentation
+    (speed perturbation, ``drop_freq``, ``drop_chunk``), over
+    ``ECAPA_HOST_BATCHES`` batches."""
+    it = ds.batch_iterator(cfg.data.train_csv, ECAPA_BATCH, seg_dur=float(cfg.data.seg_dur),
+                           epochs=ECAPA_HOST_BATCHES)
+    aug = ds.Augmenter(cfg, np.random.default_rng(1))
+    collate, augment = [], []
+    for _ in range(ECAPA_HOST_BATCHES):
+        t = time.perf_counter()
+        _, batch = next(it)
+        collate.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        aug(batch["wavs"])
+        augment.append(1e3 * (time.perf_counter() - t))
+    return {"collate_ms": collate, "augment_ms": augment,
+            "total_ms": statistics.median(c + a for c, a in zip(collate, augment))}
+
+
+def ecapa_card_against_cpu(tse, cfg, n_classes, wavs, labels):
+    """One deterministic float32 ECAPA-TDNN train step at full width, B=2,
+    cuDNN TF32 off: the card against the CPU, from the same weights and the
+    same running AdamW state (count 3, seeded moments, so that the update is
+    smooth in the gradient) at a learning rate of 0.01 (the schedule's 1e-6
+    at count 3 would move a parameter by a few of its float32 ulps, and the
+    update would measure their rounding).
+
+    The CPU step runs three times: on the batch, and on the batch with every
+    sample moved one float32 ulp up or down (two draws). How far those move
+    the CPU's own results is float32's spread for this batch: a batch norm
+    over two rows (``asp_bn`` normalizes 2 values a channel) turns one
+    rounding of the input into up to 1e-4 of the loss. Each tolerance is the
+    stated one or 4x that spread, the larger. Returns the errors, the
+    spreads and the tolerances."""
+    from mindaudio_torch.models.layers import running_stats
+
+    cfg = copy.deepcopy(cfg)
+    cfg.optim.min_lr = cfg.optim.max_lr = 0.01
+    rng = np.random.default_rng(12)
+    card = tse.build_model(cfg, "cuda", n_classes).train()
+    init = copy.deepcopy(card).cpu()
+    names = [n for n, _ in card.named_parameters()]
+    moments = {"count": 3,
+               "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
+                      for n, p in card.named_parameters()},
+               "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
+                      for n, p in card.named_parameters()}}
+    ulp = np.spacing(np.abs(wavs)).astype(np.float32)
+    inputs = [("card", card, "cuda", wavs), ("cpu", init, "cpu", wavs)] + [
+        (f"cpu_ulp{seed}", copy.deepcopy(init), "cpu",
+         wavs + ulp * np.random.default_rng(seed).choice([-1.0, 1.0], wavs.shape).astype(
+             np.float32)) for seed in (1, 2)]
+    out = {}
+    for name, model, device, x in inputs:
+        opt = tse.make_optimizer(cfg, model)
+        opt.load_state_dict(moments)
+        before = [p.detach().clone() for p in model.parameters()]
+        batch = {"wavs": torch.from_numpy(x).to(device),
+                 "labels": torch.from_numpy(labels).long().to(device)}
+        metrics = tse.make_step(cfg, model, opt)(batch)
+        out[name] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                     "update": [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)],
+                     "stats": [t.cpu() for t in running_stats(model)]}
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
+
+    def errors(a, b):
+        update = [rel(x, y) for x, y in zip(a["update"], b["update"])]
+        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
+                "update": max(update), "stats": max(rel(x, y) for x, y in zip(a["stats"],
+                                                                             b["stats"])),
+                "worst": names[int(np.argmax(update))]}
+
+    a, b = out["card"], out["cpu"]
+    errs = errors(a, b)
+    spreads = [errors(out[f"cpu_ulp{seed}"], b) for seed in (1, 2)]
+    spread = {k: max(s[k] for s in spreads) for k in ("loss", "grad_norm", "update", "stats")}
+    # the stated tolerances: float32 on both sides, sums in another order
+    # (cuDNN's convs against the CPU's)
+    stated = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-3, "stats": 1e-4}
+    tols = {k: max(stated[k], 4 * spread[k]) for k in stated}
+    log(f"ecapa: one float32 step at full width, B=2, card vs CPU: loss {a['loss']:.6f} vs "
+        f"{b['loss']:.6f}, grad_norm {a['grad_norm']:.4f} vs {b['grad_norm']:.4f}; error | "
+        "the CPU's spread over one-ulp input moves | stated tol | tol: "
+        + ", ".join(f"{k} {errs[k]:.3e} | {spread[k]:.3e} | {stated[k]} | {tols[k]:.3e}"
+                    for k in tols)
+        + f"; worst update in {errs['worst']}; {len(a['stats'])} running statistics")
+    if len(a["stats"]) != 62 or not all(errs[k] <= tols[k] for k in tols):
+        raise AssertionError(f"ecapa: card and CPU steps differ: {errs}, tolerances {tols}")
+    return {"errors": errs, "cpu_spread": spread, "stated_tolerances": stated,
+            "tolerances": tols, "loss": [a["loss"], b["loss"]]}
+
+
+def ecapa_phase(launch_counters, card):
+    """Phase 12: the ECAPA-TDNN recipe (``mindaudio_torch/recipes/ecapa_tdnn``)
+    as a user runs it, at the full width of ``ecapatdnn.yaml``, on the
+    convergence corpus in a temporary directory: ``train_speaker_embeddings
+    .main()`` with augmentation on and a save, ``speaker_verification_cosine
+    .main()`` with s-norm and without, the checkpoint restored to the same
+    embeddings, the step's time with cuDNN TF32 off and on, the host's
+    collate and augmentation, the embedding time of a bucket batch, and one
+    float32 step and one bucket's embeddings against the CPU.
+    ``launch_counters`` are the port's kernel wrappers: the path runs none of
+    them. Every measured line names ``card`` (the card's name and power
+    limit). Returns the summary."""
+    import tempfile
+
+    from mindaudio_torch.recipes.ecapa_tdnn import convergence_run, dataset
+    from mindaudio_torch.recipes.ecapa_tdnn import speaker_verification_cosine as sv
+    from mindaudio_torch.recipes.ecapa_tdnn import train_speaker_embeddings as tse
+    from mindaudio_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ecapa_") as root:
+        t = time.perf_counter()
+        convergence_run.make_corpus(root, ECAPA_SPEAKERS, n_train=ECAPA_TRAIN,
+                                    n_enrol=ECAPA_EVAL, n_test=ECAPA_EVAL)
+        gen_s = time.perf_counter() - t
+        ckpt_dir = f"{root}/ckpt"
+        # the recipe's flags, with the convergence protocol's peak learning
+        # rate reached at step 10 (the YAML's cycle is 65,000 steps long)
+        args = ["--data.train_csv", f"{root}/train.csv", "--data.enrol_csv", f"{root}/enrol.csv",
+                "--data.test_csv", f"{root}/test.csv", "--data.veri_pairs",
+                f"{root}/veri_pairs.txt", "--train.ckpt_dir", ckpt_dir,
+                "--train.max_steps", str(ECAPA_STEPS), "--train.log_every_steps", "1",
+                "--train.save_every_steps", str(ECAPA_STEPS),
+                "--optim.epochs", str(ECAPA_STEPS), "--optim.max_lr", "0.001",
+                "--optim.cycle_steps", str(ECAPA_STEPS // 2), "--eval.cohort_size", "64"]
+        cfg, _ = tse.parse_args(args)
+        n_classes = dataset.n_speakers(cfg.data.train_csv)
+        if (int(cfg.data.batch_size), tuple(cfg.model.channels), n_classes) != (
+                ECAPA_BATCH, (512, 512, 512, 512, 1536), ECAPA_SPEAKERS):
+            raise AssertionError(f"ecapa: not the full-width recipe: {cfg.model}, {n_classes}")
+        for counter in launch_counters:
+            counter.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = tse.main(args)
+        train_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        model, losses, window_ms = out["model"], out["losses"], out["window_ms"]
+        saved = checkpoint.list_steps(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{saved[-1]}",
+                                                  checkpoint.STATE_FILE))
+        final = checkpoint.restore_checkpoint(ckpt_dir)
+        n_params = sum(t.numel() for t in final["params"].values())
+        log(f"ecapa: gen {ECAPA_SPEAKERS} speakers x {ECAPA_TRAIN + 2 * ECAPA_EVAL} utterances "
+            f"{gen_s:.1f} s; train {out['steps']} steps {train_s:.1f} s at B={ECAPA_BATCH} x 3 s, "
+            f"full width ({n_params / 1e6:.3f} M params, {len(final['buffers'])} running "
+            f"statistics), augmentation on; peak memory {peak_gib:.2f} GiB; steps saved {saved}, "
+            f"{ckpt_bytes} bytes a checkpoint ({card})")
+        log("ecapa: loss per step " + " ".join(f"{losses[s]:.3f}" for s in sorted(losses)))
+        log("ecapa: the recipe's ms per step (host clock, each step ending in the loss's "
+            "read-back, the collate and augmentation in the prefetch thread): "
+            + " ".join(f"{v:.1f}" for v in window_ms)
+            + f"; median {statistics.median(window_ms):.1f} ({card})")
+        stats_finite = all(torch.isfinite(b).all().item() for b in final["buffers"].values())
+        if out["steps"] != ECAPA_STEPS or len(losses) != ECAPA_STEPS:
+            raise AssertionError(f"ecapa: {out['steps']} steps, losses {losses}")
+        if not np.isfinite(list(losses.values())).all():
+            raise AssertionError(f"ecapa: a loss is not finite: {losses}")
+        if not losses[ECAPA_STEPS] < losses[1]:
+            raise AssertionError(f"ecapa: the loss did not fall: {losses[1]} -> "
+                                 f"{losses[ECAPA_STEPS]}")
+        if not stats_finite or len(final["buffers"]) != 62 or saved != [ECAPA_STEPS]:
+            raise AssertionError(f"ecapa: running statistics finite {stats_finite}, "
+                                 f"{len(final['buffers'])} buffers, steps saved {saved}")
+        launches = {c.__name__: c.launches for c in launch_counters}
+        log(f"ecapa: kernel launches over the train run {launches} (the path has no TPU kernel: "
+            "its fbank is plain PyTorch, as the JAX package's is XLA)")
+        if any(launches.values()):
+            raise AssertionError(f"ecapa: a kernel launched on the ECAPA path: {launches}")
+
+        t = time.perf_counter()
+        eer_cos = sv.main(args + ["--eval.score_norm", "false"])
+        cos_s = time.perf_counter() - t
+        t = time.perf_counter()
+        eer_snorm = sv.main(args + ["--eval.score_norm", "true"])
+        snorm_s = time.perf_counter() - t
+        n_eval = ECAPA_SPEAKERS * ECAPA_EVAL
+        log(f"ecapa: verification, {n_eval} x {n_eval} trials: EER {100 * eer_cos:.2f}% cosine "
+            f"({cos_s:.1f} s), {100 * eer_snorm:.2f}% adaptive s-norm against the "
+            f"{ECAPA_SPEAKERS * ECAPA_TRAIN} training utterances, top 64 ({snorm_s:.1f} s); "
+            "not judged after 20 steps")
+        if not (0 <= eer_cos <= 1 and 0 <= eer_snorm <= 1):
+            raise AssertionError(f"ecapa: EERs {eer_cos}, {eer_snorm}")
+
+        # the checkpoint restores to the same embeddings; one 8 s bucket batch
+        # of mixed lengths, timed, then against the CPU
+        rows = dataset.read_segments(cfg.data.test_csv)[0][:sv.BATCH]
+        waves = [sv._read_full(r) for r in rows]
+        blen = max(sv._bucket_len(len(x)) for x in waves)
+        wavs = np.zeros((sv.BATCH, blen), np.float32)
+        lens = np.full(sv.BATCH, 1, np.int32)
+        for i, x in enumerate(waves):
+            wavs[i, :len(x)], lens[i] = x, len(x)
+        restored = sv.load_model(cfg, "cuda")
+        embed = sv.make_embed_fn(restored, cfg)
+        emb_restored = embed(wavs, lens)
+        emb_trained = sv.make_embed_fn(model, cfg)(wavs, lens)
+        restore_err = float(np.abs(emb_restored - emb_trained).max())
+        t = time.perf_counter()
+        for _ in range(ECAPA_TIMED_STEPS):
+            embed(wavs, lens)
+        embed_ms = 1e3 * (time.perf_counter() - t) / ECAPA_TIMED_STEPS
+        emb_cpu = sv.make_embed_fn(copy.deepcopy(restored).cpu(), cfg)(wavs, lens)
+        embed_err = float(np.abs(emb_restored - emb_cpu).max())
+        log(f"ecapa: embeddings of a {sv.BATCH} x {blen / 16000:.0f} s bucket batch (lengths "
+            f"{lens.min() / 16000:.2f}-{lens.max() / 16000:.2f} s): {embed_ms:.2f} ms a batch "
+            f"(host clock, ending in the copy to the host); restored checkpoint vs the trained "
+            f"model max abs err {restore_err:.3e} (tol 1e-6); card vs CPU {embed_err:.3e} "
+            f"(tol 1e-4) ({card})")
+        if not restore_err <= 1e-6 or not embed_err <= 1e-4:
+            raise AssertionError(f"ecapa: embeddings differ: restored {restore_err}, "
+                                 f"cpu {embed_err}")
+        del model, restored, out
+
+        host = ecapa_host_ms(dataset, cfg)
+        log(f"ecapa: the host's ms per batch of {ECAPA_BATCH} x 3 s (apart from the card): "
+            f"collate {' '.join(f'{v:.1f}' for v in host['collate_ms'])}, augmentation "
+            f"{' '.join(f'{v:.1f}' for v in host['augment_ms'])}; median total "
+            f"{host['total_ms']:.1f} ({card})")
+        _, batch = next(dataset.batch_iterator(cfg.data.train_csv, ECAPA_BATCH,
+                                               augmenter=dataset.Augmenter(
+                                                   cfg, np.random.default_rng(0))))
+        timing = ecapa_step_ms(tse, cfg, n_classes, batch)
+        log(f"ecapa: ms per step at B={ECAPA_BATCH} x 3 s on one batch (host clock, "
+            f"{ECAPA_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
+            f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f} ({card})")
+        check = ecapa_card_against_cpu(tse, cfg, n_classes, batch["wavs"][:2],
+                                       batch["labels"][:2])
+    torch.cuda.empty_cache()
+    return {"steps": ECAPA_STEPS, "losses": losses, "window_ms": window_ms, "params": n_params,
+            "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes,
+            "eer": {"cosine": eer_cos, "snorm": eer_snorm}, "step_ms": timing, "host_ms": host,
+            "embed_ms": embed_ms, "launches": launches, "card_against_cpu": check}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1750,6 +2043,13 @@ def main():
     ds2_launches, ds2 = deepspeech2_phase(ctc_dp)
     ds2_ctc = {name: ctc_results[name] for name in CTC_TIMED if name.startswith("deepspeech2")}
 
+    # 12. the ECAPA-TDNN recipe at full width: no TPU kernel on its path
+    kernels = [quant.int8_matmul, ctc_dp.ctc_dp_fwd, ctc_dp.ctc_dp_bwd, logmel.fused_logmel]
+    ecapa = ecapa_phase(kernels, card)
+    log("ecapa_tdnn: " + json.dumps({"card": card, **{
+        k: v for k, v in ecapa.items() if k not in ("losses", "window_ms")}}))
+    ecapa_launches = ecapa["launches"]
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -1767,6 +2067,7 @@ def main():
         "card": card, "shapes": results, "prefix_beam_dp": dps,
         "stream_launches": stream_launches, "stream": stream,
         "stream_shapes": [r for r in stream_results if r["m"] == STREAM_CHUNK and "ms" in r],
+        "ecapa_tdnn_launches": ecapa_launches["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -1780,6 +2081,7 @@ def main():
         "plan": flagship["plan"], "recipe_launches": recipe_launches[0], "recipe": recipe,
         "deepspeech2_launches": ds2_launches[0], "deepspeech2": ds2, "deepspeech2_ctc": ds2_ctc,
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
+        "ecapa_tdnn_launches": ecapa_launches["ctc_dp_fwd"],
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -1791,7 +2093,7 @@ def main():
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
         "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
-        "card": card,
+        "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",
@@ -1800,6 +2102,7 @@ def main():
         "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
         "bound_by": mel["bound_by"], "library_ms": None, "shape": mel["shape"], "passes": 3,
         "card": card, "shapes": logmel_results,
+        "ecapa_tdnn_launches": ecapa_launches["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

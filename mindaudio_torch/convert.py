@@ -8,7 +8,9 @@ change layout as PyTorch wants it:
 
 - Dense ``kernel`` ``(in, out)`` → ``Linear.weight`` ``(out, in)``;
 - Conv2d ``kernel`` HWIO → OIHW;
-- depthwise Conv1d ``kernel`` ``(k, 1, C)`` → ``(C, 1, k)``;
+- Conv1d ``kernel`` ``(k, Cin, Cout)`` → ``(Cout, Cin, k)`` (depthwise:
+  ``(k, 1, C)`` → ``(C, 1, k)``);
+- ECAPA-TDNN's cosine ``Classifier`` ``weight`` keeps flax's ``(lin, out)``;
 - LayerNorm and BatchNorm ``scale`` → ``weight``; Embed ``embedding`` →
   ``weight``;
 - DeepSpeech2's BiLSTM ``wx (2, D, 4H)`` / ``wh (2, H, 4H)`` →

@@ -1,7 +1,9 @@
-"""Host-side resampling (the port's copy of ``resample`` from
-``mindaudio_tpu.data.processing``, pinned to it by
-``tests/test_torch_recipe_infra.py``). The recipe's collate calls it for
-speed perturbation and for sources that are not at 16 kHz."""
+"""Host-side resampling and rescaling (the port's copies of ``resample``,
+``unitarize`` and ``rescale`` from ``mindaudio_tpu.data.processing``, pinned
+to them by ``tests/test_torch_recipe_infra.py`` and
+``tests/test_torch_ecapa_recipe.py``). The recipes' collates call
+``resample`` for speed perturbation and for sources that are not at 16 kHz;
+``augment.reverberate`` calls ``rescale``."""
 
 from __future__ import annotations
 
@@ -10,7 +12,9 @@ from math import gcd
 import numpy as np
 import scipy.signal
 
-__all__ = ["resample"]
+from .spectrum import compute_amplitude, dB_to_amplitude
+
+__all__ = ["resample", "unitarize", "rescale"]
 
 
 # the kaiser filter's shape: torchaudio's defaults, as in the JAX package
@@ -69,3 +73,31 @@ def resample(waveform, orig_freq=16000, new_freq=16000, res_type="fft"):
     target = int(np.ceil(new_freq * n_in / orig_freq))
     out = out[:, :target]
     return out.reshape(shape[:-1] + (out.shape[-1],)).astype(waveform.dtype)
+
+
+def unitarize(waveforms, lengths=None, amp_type="avg", eps=1e-14):
+    """Scale to unit average or peak amplitude (``spectrum.compute_amplitude``)."""
+    assert amp_type in ("avg", "peak")
+    waveforms = np.asarray(waveforms)
+    squeeze_back = waveforms.ndim == 1
+    if squeeze_back:
+        waveforms = waveforms[None]
+    level = compute_amplitude(waveforms, lengths, amp_type)
+    scaled = waveforms / (level + eps)  # level is (B, 1): divide pre-squeeze
+    return scaled[0] if squeeze_back else scaled
+
+
+def rescale(waveforms, target_lvl, lengths=None, amp_type="avg", dB=False):
+    """Scale to the level ``target_lvl`` (linear, or in dB with ``dB=True``);
+    ``amp_type`` "max" is "peak"."""
+    assert amp_type in ("max", "avg", "peak")
+    kind = "peak" if amp_type == "max" else amp_type
+    waveforms = np.asarray(waveforms)
+    squeeze_back = waveforms.ndim == 1
+    if squeeze_back:
+        waveforms = waveforms[None]
+
+    gain = (dB_to_amplitude(np.array(target_lvl), ref=1.0, power=0.5)
+            if dB else target_lvl)
+    leveled = gain * unitarize(waveforms, lengths=lengths, amp_type=kind)
+    return leveled[0] if squeeze_back else leveled

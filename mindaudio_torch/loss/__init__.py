@@ -1,1 +1,1 @@
-"""Training objectives of the port: CTC and label-smoothing KL."""
+"""Training objectives of the port: CTC, label-smoothing KL and AAM-softmax."""

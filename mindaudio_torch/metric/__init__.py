@@ -1,1 +1,1 @@
-"""Metrics (port of ``mindaudio_tpu.metric``): only the error rates so far."""
+"""Metrics (port of ``mindaudio_tpu.metric``): the error rates and the equal error rate."""

@@ -29,7 +29,6 @@ the gradient nor the weight decay counts it twice.
 
 from __future__ import annotations
 
-import math
 import warnings
 
 import torch
@@ -38,19 +37,9 @@ from torch.nn import functional as F
 
 from .. import resolve_device
 from ..utils.mask import make_non_pad_mask
-from .layers import BatchNorm
+from .layers import BatchNorm, lecun_normal_
 
 __all__ = ["flip_valid", "BiLSTM", "BatchRNN", "MaskConv", "DeepSpeechModel"]
-
-# flax's lecun_normal draws a normal truncated at two standard deviations,
-# scaled so that the variance is 1 / fan_in
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal_(t, fan_in, generator):
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
 
 def flip_valid(x, lengths):
     """Reverse each row's valid prefix along time (axis 1), padding rotated to
@@ -89,7 +78,7 @@ class BiLSTM(nn.Module):
         h, d = self.hidden, self.weight_ih.shape[2]
         for direction in range(2):
             for g in range(4):
-                _lecun_normal_(self.weight_ih[direction, g * h:(g + 1) * h], d, generator)
+                lecun_normal_(self.weight_ih[direction, g * h:(g + 1) * h], d, generator)
                 nn.init.orthogonal_(self.weight_hh[direction, g * h:(g + 1) * h],
                                     generator=generator)
         self.bias.zero_()
@@ -220,7 +209,7 @@ class DeepSpeechModel(nn.Module):
         zero biases, unit batch-norm scales, running statistics 0 and 1."""
         for module in self.modules():
             if isinstance(module, (nn.Conv2d, nn.Linear)):
-                _lecun_normal_(module.weight, module.weight[0].numel(), generator)
+                lecun_normal_(module.weight, module.weight[0].numel(), generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, BatchNorm):

@@ -33,6 +33,7 @@ __all__ = [
     "GlobalCMVN",
     "BatchNorm",
     "running_stats",
+    "lecun_normal_",
     "PositionwiseFeedForward",
     "MultiHeadedAttention",
     "RelPositionMultiHeadedAttention",
@@ -116,8 +117,9 @@ class GlobalCMVN(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Batch normalization over every axis but the last, as flax's
-    ``nn.BatchNorm(momentum=...)`` computes it.
+    """Batch normalization of the features along ``axis`` (the last by
+    default) over every other axis, as flax's ``nn.BatchNorm(momentum=...)``
+    computes it on a channels-last input.
 
     In training the batch statistics are float32, ``mean = E[x]`` and the
     *biased* ``var = max(E[x^2] - E[x]^2, 0)`` over every position given
@@ -127,12 +129,14 @@ class BatchNorm(nn.Module):
     the other way round). In eval the running statistics are used. The
     output is ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32.
     ``running_mean``/``running_var`` are flax's ``batch_stats`` ``mean`` and
-    ``var``; there is no ``num_batches_tracked``.
+    ``var``; there is no ``num_batches_tracked``. ``axis=1`` normalizes a
+    channels-first ``(B, C, T)`` tensor as flax does its ``(B, T, C)``
+    transpose.
     """
 
-    def __init__(self, features, momentum=0.9, eps=1e-5):
+    def __init__(self, features, momentum=0.9, eps=1e-5, axis=-1):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.axis = momentum, eps, axis
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -140,8 +144,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         x = x.float()
+        axis = self.axis % x.dim()
+        shape = [-1 if d == axis else 1 for d in range(x.dim())]
         if self.training:
-            axes = tuple(range(x.dim() - 1))
+            axes = tuple(d for d in range(x.dim()) if d != axis)
             mean = x.mean(axes)
             var = torch.clamp_min(x.square().mean(axes) - mean.square(), 0.0)
             with torch.no_grad():
@@ -149,7 +155,19 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+# flax's lecun_normal draws a normal truncated at two standard deviations,
+# scaled so that the variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t, fan_in, generator):
+    """Fill ``t`` from flax's ``lecun_normal()`` with ``generator``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def running_stats(module):

@@ -1,8 +1,9 @@
 """Static DSP design math (NumPy), copied from ``mindaudio_tpu.ops.filterbanks``.
 
 The port keeps its own copy so that it imports nothing of the JAX package;
-``tests/test_torch_frontend.py`` pins these functions to the originals bit
-for bit. Everything here runs once at set-up and returns ``np.ndarray``s.
+``tests/test_torch_frontend.py`` and ``tests/test_torch_ecapa.py`` pin these
+functions to the originals bit for bit. Everything here runs once at
+set-up and returns ``np.ndarray``s.
 """
 
 from __future__ import annotations
@@ -10,13 +11,54 @@ from __future__ import annotations
 import numpy as np
 from scipy.signal import get_window as _scipy_get_window
 
-__all__ = ["kaldi_mel_banks", "melscale_fbanks", "get_window", "povey_window"]
+__all__ = ["hz_to_mel", "mel_to_hz", "mel_frequencies", "kaldi_mel_banks", "melscale_fbanks",
+           "get_window", "povey_window"]
 
 
-def _htk_mel(frequencies):
-    """Hz to mel by the HTK formula (``hz_to_mel(..., htk=True)`` there)."""
+def hz_to_mel(frequencies, htk=False):
+    """Hz to mel: the Slaney formula (linear below 1 kHz, logarithmic above)
+    by default, HTK's ``2595 log10(1 + f/700)`` with ``htk=True``."""
     frequencies = np.asanyarray(frequencies, dtype=np.float64)
-    return 2595.0 * np.log10(1.0 + frequencies / 700.0)
+    if htk:
+        return 2595.0 * np.log10(1.0 + frequencies / 700.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (frequencies - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    if frequencies.ndim:
+        log_t = frequencies >= min_log_hz
+        mels = np.where(
+            log_t,
+            min_log_mel + np.log(np.maximum(frequencies, min_log_hz) / min_log_hz) / logstep,
+            mels,
+        )
+    elif frequencies >= min_log_hz:
+        mels = min_log_mel + np.log(frequencies / min_log_hz) / logstep
+    return mels
+
+
+def mel_to_hz(mels, htk=False):
+    """Mel to Hz, the inverse of :func:`hz_to_mel`."""
+    mels = np.asanyarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    if mels.ndim:
+        log_t = mels >= min_log_mel
+        freqs = np.where(log_t, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+    elif mels >= min_log_mel:
+        freqs = min_log_hz * np.exp(logstep * (mels - min_log_mel))
+    return freqs
+
+
+def mel_frequencies(n_mels=128, fmin=0.0, fmax=11025.0, htk=False):
+    """``n_mels`` frequencies evenly spaced on the mel axis."""
+    return mel_to_hz(np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels), htk=htk)
 
 
 def kaldi_mel_banks(num_bins, n_fft, sample_rate, low_freq=20.0, high_freq=None,
@@ -30,9 +72,10 @@ def kaldi_mel_banks(num_bins, n_fft, sample_rate, low_freq=20.0, high_freq=None,
     if high_freq is None:
         high_freq = sample_rate / 2.0
     n_freqs = n_fft // 2  # kaldi leaves the nyquist bin out of the triangles
-    bin_mels = _htk_mel(sample_rate / n_fft * np.arange(n_freqs))
+    bin_mels = hz_to_mel(sample_rate / n_fft * np.arange(n_freqs), htk=True)
 
-    edge = np.linspace(_htk_mel(low_freq), _htk_mel(high_freq), num_bins + 2)
+    edge = np.linspace(hz_to_mel(low_freq, htk=True), hz_to_mel(high_freq, htk=True),
+                       num_bins + 2)
     left, center, right = edge[:-2, None], edge[1:-1, None], edge[2:, None]
     rising = (bin_mels[None, :] - left) / (center - left)
     falling = (right - bin_mels[None, :]) / (right - center)
@@ -41,24 +84,26 @@ def kaldi_mel_banks(num_bins, n_fft, sample_rate, low_freq=20.0, high_freq=None,
     return weights.T.astype(dtype)
 
 
-def _htk_hz(mels):
-    """Mel to Hz by the HTK formula (``mel_to_hz(..., htk=True)`` there)."""
-    mels = np.asanyarray(mels, dtype=np.float64)
-    return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
-
-
-def melscale_fbanks(n_freqs, f_min, f_max, n_mels, sample_rate, dtype=np.float32):
-    """torchaudio-convention mel filterbank on HTK mels without area
-    normalization (``melscale_fbanks(..., norm=None, mel_scale="htk")``
-    there), shape ``(n_freqs, n_mels)``: FFT-bin frequencies span
-    ``[0, sample_rate // 2]`` and the triangles are linear in Hz."""
+def melscale_fbanks(n_freqs, f_min, f_max, n_mels, sample_rate, norm=None, mel_scale="htk",
+                    dtype=np.float32):
+    """torchaudio-convention mel filterbank, shape ``(n_freqs, n_mels)``:
+    FFT-bin frequencies span ``[0, sample_rate // 2]`` and the triangles are
+    linear in Hz, their edges evenly spaced on HTK (default) or Slaney mels;
+    ``norm="slaney"`` scales each triangle to unit area."""
+    htk = mel_scale == "htk"
     all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
-    f_pts = _htk_hz(np.linspace(_htk_mel(f_min), _htk_mel(f_max), n_mels + 2))
+    m_pts = np.linspace(hz_to_mel(f_min, htk=htk), hz_to_mel(f_max, htk=htk), n_mels + 2)
+    f_pts = mel_to_hz(m_pts, htk=htk)
     f_diff = np.diff(f_pts)
     slopes = f_pts.reshape(1, -1) - all_freqs.reshape(-1, 1)  # (n_freqs, n_mels + 2)
     down_slopes = -slopes[:, :-2] / f_diff[:-1]
     up_slopes = slopes[:, 2:] / f_diff[1:]
-    return np.maximum(0.0, np.minimum(down_slopes, up_slopes)).astype(dtype)
+    fb = np.maximum(0.0, np.minimum(down_slopes, up_slopes))
+    if norm == "slaney":
+        fb *= (2.0 / (f_pts[2: n_mels + 2] - f_pts[:n_mels])).reshape(1, -1)
+    elif norm is not None and norm != "none":
+        raise ValueError(f"Unsupported norm={norm!r}")
+    return fb.astype(dtype)
 
 
 def get_window(window, win_length, fftbins=True):

@@ -1,15 +1,16 @@
 """Learning-rate schedules (port of ``mindaudio_tpu.scheduler.schedules``).
 
-Only the Conformer recipe's Noam warm-up so far. A schedule is a plain
-function of the step: a Python int gives a float tensor on the CPU, a device
-tensor gives a device tensor (no host round trip inside a train step).
+The Conformer recipe's Noam warm-up and ECAPA-TDNN's cyclic triangle. A
+schedule is a plain function of the step: a Python int gives a float tensor
+on the CPU, a device tensor gives a device tensor (no host round trip inside
+a train step).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["asr_warmup_lr"]
+__all__ = ["asr_warmup_lr", "cyclic_triangular_lr"]
 
 
 def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
@@ -19,5 +20,18 @@ def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
     def schedule(step):
         s = (torch.as_tensor(step) + start_steps).clamp_min(1).to(torch.float32)
         return lr * warmup_steps**0.5 * torch.minimum(s**-0.5, s * warmup_steps**-1.5)
+
+    return schedule
+
+
+def cyclic_triangular_lr(min_lr, max_lr, step_size):
+    """Triangular cyclic learning rate: from ``min_lr`` up to ``max_lr`` over
+    ``step_size`` steps and down again over as many, repeated."""
+
+    def schedule(step):
+        step = torch.as_tensor(step)
+        cycle = torch.floor(1 + step / (2 * step_size))
+        x = torch.abs(step / step_size - 2 * cycle + 1)
+        return min_lr + (max_lr - min_lr) * torch.clamp_min(1.0 - x, 0.0)
 
     return schedule

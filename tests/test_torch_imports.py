@@ -52,6 +52,11 @@ def test_the_recipes_are_scanned():
         "dataset", "train", "predict", "compute_cmvn_stats", "convergence_run")} <= recipes
     assert {f"mindaudio_torch/recipes/deepspeech2/{m}.py" for m in (
         "dataset", "train", "eval", "synthetic")} <= recipes
+    assert {f"mindaudio_torch/recipes/ecapa_tdnn/{m}.py" for m in (
+        "dataset", "train_speaker_embeddings", "speaker_verification_cosine",
+        "convergence_run")} <= recipes
+    assert {"train_speaker_embeddings", "speaker_verification_cosine",
+            "convergence_run"} <= FORBIDDEN
     assert {"dataset", "train", "predict", "eval", "examples"} <= FORBIDDEN
 
 
