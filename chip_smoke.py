@@ -7,7 +7,8 @@ Run from the root of the repository, with no arguments::
 
 (``python3 chip_smoke.py --profile-train`` instead profiles a few train steps
 with ``torch.profiler`` and prints the device's busy share and the kernels by
-device time; it checks nothing.)
+device time; ``--profile-separation`` does the same for the Conv-TasNet and
+TasNet steps of phase 13; neither checks anything.)
 
 Phases, each of which fails the run (non-zero exit) when it does not hold:
 
@@ -121,7 +122,7 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    step at full width (B = 2) on the card against the CPU's plain versions
    from the same weights and AdamW state: loss, gradient norm, each
    parameter's update and the running statistics, against stated
-   tolerances;
+   tolerances or 4x the CPU's own spread, the larger (see 13);
 12. the ECAPA-TDNN recipe (``mindaudio_torch/recipes/ecapa_tdnn``) as a user
    runs it, at the full width of ``ecapatdnn.yaml`` (channels 512 x 4 and
    1536, Res2Net scale 8, embedding 192, 6.21 M parameters with 32
@@ -141,8 +142,30 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    the peak memory, the bytes of a checkpoint and the embedding ms of a 16
    x 8 s bucket batch; then holds one float32 step at full width (B = 2,
    TF32 off) on the card against the CPU (loss, gradient norm, each
-   parameter's update, the 62 running statistics) and one bucket batch's
-   embeddings, against stated tolerances.
+   parameter's update, the 62 running statistics, each against a stated
+   tolerance or 4x the CPU's own spread, the larger: see 13) and one bucket
+   batch's embeddings, against a stated tolerance;
+13. the separation recipes (``mindaudio_torch/recipes/conv_tasnet`` and
+   ``recipes/tasnet``) as a user runs them, at the full width of their
+   YAMLs (Conv-TasNet: N 512, L 16, bottleneck 128, hidden 512, X 8, R 3,
+   gLN, ReLU masks, 3,445,808 parameters; TasNet: N 500, L 40, 4 summed
+   BiLSTM layers of 500, 16,578,000 parameters; float32): write 32
+   training and 8 test mixtures of 4 s at 8 kHz (``convergence_run
+   .make_corpus``; LibriMix is not in the repository), then for each model
+   ``train.main()`` at B = 16 x 4 s (Conv-TasNet 20 steps, TasNet 10) with
+   a save at the last step and ``eval.main()`` on 4 test mixtures (SI-SNRi
+   and BSS Eval SDRi printed, not judged). Every loss must be finite and
+   one after the first below it, the checkpoint must hold the trained
+   parameters, and none of the port's kernels may launch (the JAX models
+   run no Pallas kernel). Prints the recipe's ms per step (the collate in
+   the prefetch thread), the host's collate apart, ms per step on one batch
+   with cuDNN's TF32 off and on, the peak memory, the bytes of a
+   checkpoint and the separation latency of one mixture and of a batch of
+   16; then holds one float32 step at full width (B = 2 x 4 s, TF32 off)
+   on the card against the CPU: the loss within 1e-5 relative and the
+   gradient norm within 1e-4, or 4x the CPU's own spread over one-ulp moves
+   of the input, the larger; each update within 1e-4 of its leaf's largest
+   or 4x that leaf's own spread, the larger.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -190,6 +213,11 @@ DS2_STEPS, DS2_SAVE_EVERY, DS2_TIMED_STEPS = 20, 10, 10
 # two batches of 192 an epoch, and trains 20 steps with a save at the last
 ECAPA_SPEAKERS, ECAPA_TRAIN, ECAPA_EVAL = 32, 12, 2
 ECAPA_BATCH, ECAPA_STEPS, ECAPA_TIMED_STEPS, ECAPA_HOST_BATCHES = 192, 20, 10, 3
+# Conv-TasNet and TasNet (recipes/conv_tasnet, recipes/tasnet, full width):
+# phase 13 writes 32 training mixtures of 4 s (two batches of 16 an epoch)
+# and trains Conv-TasNet 20 steps and TasNet 10, each with a save at the last
+SEP_BATCH, SEP_SAMPLES, SEP_TRAIN_UTTS = 16, 32000, 32
+SEP_CONV_STEPS, SEP_TASNET_STEPS, SEP_TIMED_STEPS, SEP_HOST_BATCHES = 20, 10, 10, 3
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -762,14 +790,15 @@ def make_trainer():
     return model, optimizer, step, train_batch(TRAIN_BATCH, seed=0, device="cuda")
 
 
-def profile_train(steps=3, rows=25):
-    """``--profile-train``: ``torch.profiler`` over a few steady train steps.
-    Prints the device's busy share of the window and the kernels by device
-    time; not part of the smoke run."""
+def profile_steps(label, step, batch, warmup=TRAIN_WARMUP_STEPS, steps=3, rows=25, by_op=True):
+    """``torch.profiler`` over ``steps`` steady calls of ``step(batch)``
+    after ``warmup``. Prints the device's busy share of the window, the
+    device kernels by time (grouped by name from the device events) and,
+    with ``by_op``, the profiler's table by operator (slow to tabulate over
+    a step of tens of thousands of kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, step, batch = make_trainer()
-    for _ in range(TRAIN_WARMUP_STEPS):
+    for _ in range(warmup):
         step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -778,13 +807,54 @@ def profile_train(steps=3, rows=25):
             step(batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)  # before the profiler's own wrap-up
+    t1 = time.perf_counter()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time for e in events) / 1e3 if events else 0.0
-    log(f"profile: {steps} train steps, {wall_ms:.1f} ms of host time with the profiler on, "
-        f"{len(events)} device operations ({len(events) / steps:.0f} per step), device busy "
-        f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of the window")
-    log(prof.key_averages().table(sort_by="device_time_total", row_limit=rows,
-                                  max_name_column_width=60))
+    busy_us = sum(e.device_time for e in events)
+    log(f"profile {label}: {steps} train steps, {wall_ms:.1f} ms of host time with the "
+        f"profiler on, {len(events)} device operations ({len(events) / steps:.0f} per step), "
+        f"device busy {busy_us / 1e3:.1f} ms = {100 * busy_us / 1e3 / wall_ms:.1f}% of the "
+        f"window (events read in {time.perf_counter() - t1:.1f} s)")
+    by_name, calls = collections.Counter(), collections.Counter()
+    for e in events:
+        by_name[e.name] += e.device_time
+        calls[e.name] += 1
+    log(f"profile {label}: device kernels by time (ms over the {steps} steps | share of the "
+        "device time | launches | name):")
+    for name, us in by_name.most_common(rows):
+        log(f"  {us / 1e3:10.3f} | {100 * us / busy_us:5.1f}% | {calls[name]:7d} | {name[:100]}")
+    if by_op:
+        log(prof.key_averages().table(sort_by="device_time_total", row_limit=rows,
+                                      max_name_column_width=60))
+
+
+def profile_train():
+    """``--profile-train``: the Conformer's train step (phase 7's)."""
+    _, _, step, batch = make_trainer()
+    profile_steps("conformer", step, batch)
+
+
+def profile_separation():
+    """``--profile-separation``: the Conv-TasNet and TasNet recipes' train
+    steps at full width on one batch of B = 16 x 4 s of seeded noise
+    (cuDNN TF32 off)."""
+    from mindaudio_torch.recipes.conv_tasnet import train as conv_train
+    from mindaudio_torch.recipes.tasnet import train as tas_train
+
+    rng = np.random.default_rng(0)
+    src = rng.standard_normal((SEP_BATCH, 2, SEP_SAMPLES)).astype(np.float32)
+    batch = sep_batch_to({"mix": src.sum(1), "src": src,
+                          "lengths": np.full(SEP_BATCH, SEP_SAMPLES, np.int32)}, "cuda")
+    for name, recipe, separate_fn in (("conv_tasnet", conv_train, conv_train.separate),
+                                      ("tasnet", tas_train, tas_train.separate_full)):
+        cfg, _ = recipe.parse_args([])
+        model = recipe.build_model(cfg, "cuda").train()
+        step = conv_train.make_step(cfg, model, conv_train.make_optimizer(cfg, model),
+                                    separate_fn)
+        # TasNet's step is some 65,000 kernels: one step, no table by operator
+        profile_steps(name, step, batch, steps=1 if name == "tasnet" else 3,
+                      by_op=name != "tasnet")
+        del model, step
+        torch.cuda.empty_cache()
 
 
 def train_phase(ctc_dp, ctc_times):
@@ -1229,44 +1299,134 @@ def recipe_phase(ctc_dp):
                       "dev_losses": dev, "cer": cers, "checkpoint_bytes": ckpt_bytes}
 
 
+def step_ms(step, batch, n):
+    """ms per train step on one fixed ``batch`` on the card (host clock,
+    ``n`` steps after two warm-up steps, ending in the loss's read-back),
+    with cuDNN's TF32 off and then on; the matrix products' TF32 stays off
+    (PyTorch's default)."""
+    out = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            for _ in range(2):
+                step(batch)
+            float(step(batch)["loss"])
+            t = time.perf_counter()
+            for _ in range(n):
+                metrics = step(batch)
+            loss = float(metrics["loss"])
+            out["tf32_on" if tf32 else "tf32_off"] = {
+                "ms": 1e3 * (time.perf_counter() - t) / n, "loss": loss}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def card_against_cpu(label, build, make_optimizer, make_step, batch, key, to_device, stated,
+                     stats=None):
+    """One deterministic float32 train step at full width, cuDNN TF32 off:
+    the card against the CPU, from the same weights (``build(device)``) and
+    the same running AdamW state (count 3, seeded moments, so that the
+    update is smooth in the gradient). ``make_step(model, optimizer)`` is
+    the recipe's step; ``to_device(batch, device)`` moves the numpy
+    ``batch``; ``stats(model)``, where given, lists tensors that the step
+    updates in place (running statistics), held like the updates.
+
+    The CPU step runs three times: on the batch, and with every sample of
+    ``batch[key]`` moved one float32 ulp up or down (two draws); how far
+    those move the CPU's own results is float32's spread for this batch.
+    The loss and the gradient norm (relative errors) are held to the
+    ``stated`` tolerance or 4x their spread, the larger. Each update is
+    held to ``stated["update"]`` of its own leaf's largest update or 4x that
+    leaf's own spread, the larger, and each statistic likewise. The worst
+    ratio of error to limit is printed with its leaf and the limit that
+    applied there. Returns the errors, the spreads and the limits."""
+    rng = np.random.default_rng(13)
+    card = build("cuda").train()
+    init = copy.deepcopy(card).cpu()
+    names = {"update": [n for n, _ in card.named_parameters()]}
+    if stats:
+        ids = {id(b): n for n, b in card.named_buffers()}
+        names["stats"] = [ids[id(b)] for b in stats(card)]
+    moments = {"count": 3,
+               "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
+                      for n, p in card.named_parameters()},
+               "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
+                      for n, p in card.named_parameters()}}
+    x = batch[key]
+    ulp = np.spacing(np.abs(x)).astype(np.float32)
+    runs = [("card", card, "cuda", x), ("cpu", init, "cpu", x)] + [
+        (f"cpu_ulp{seed}", copy.deepcopy(init), "cpu",
+         x + ulp * np.random.default_rng(seed).choice([-1.0, 1.0], x.shape).astype(np.float32))
+        for seed in (1, 2)]
+    out = {}
+    for run, model, device, xs in runs:
+        opt = make_optimizer(model)
+        opt.load_state_dict(moments)
+        before = [p.detach().clone() for p in model.parameters()]
+        metrics = make_step(model, opt)(to_device(dict(batch, **{key: xs}), device))
+        out[run] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                    "update": [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)]}
+        if stats:
+            out[run]["stats"] = [t.cpu() for t in stats(model)]
+
+    def errors(a, b):
+        return ({k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")},
+                {k: np.array([((x - y).abs().max() / y.abs().max()).item()
+                              for x, y in zip(a[k], b[k])]) for k in names})
+
+    a, b = out["card"], out["cpu"]
+    err, err_t = errors(a, b)
+    spreads = [errors(out[f"cpu_ulp{seed}"], b) for seed in (1, 2)]
+    spread = {k: max(s[0][k] for s in spreads) for k in err}
+    tols = {k: max(stated[k], 4 * spread[k]) for k in err}
+    applied = {k: "stated" if tols[k] == stated[k] else "4x spread" for k in err}
+    per_leaf = {}
+    for k in names:
+        leaf_spread = np.maximum(*(s[1][k] for s in spreads))
+        limit = np.maximum(stated[k], 4 * leaf_spread)
+        i = int(np.argmax(err_t[k] / limit))
+        per_leaf[k] = {"worst_ratio": float(err_t[k][i] / limit[i]), "worst": names[k][i],
+                       "error": float(err_t[k][i]), "spread": float(leaf_spread[i]),
+                       "limit": float(limit[i]),
+                       "applied": "stated" if limit[i] == stated[k] else "4x spread",
+                       "largest_error": float(err_t[k].max()),
+                       "largest_in": names[k][int(np.argmax(err_t[k]))],
+                       "leaves": len(names[k]), "spread_applied": int((limit > stated[k]).sum())}
+    log(f"{label}, card vs CPU: loss {a['loss']:.6f} vs {b['loss']:.6f}, grad_norm "
+        f"{a['grad_norm']:.4f} vs {b['grad_norm']:.4f}; error | the CPU's spread over one-ulp "
+        "input moves | stated tol | tol (which applied): "
+        + ", ".join(f"{k} {err[k]:.3e} | {spread[k]:.3e} | {stated[k]} | {tols[k]:.3e} "
+                    f"({applied[k]})" for k in err)
+        + "".join(f"; {k}, each leaf against its own limit (stated {stated[k]} of the leaf's "
+                  f"largest, or 4x its spread): worst error/limit {v['worst_ratio']:.3f} in "
+                  f"{v['worst']} (error {v['error']:.3e}, spread {v['spread']:.3e}, limit "
+                  f"{v['limit']:.3e}, {v['applied']}), largest error {v['largest_error']:.3e} in "
+                  f"{v['largest_in']}, 4x spread applied to {v['spread_applied']} of "
+                  f"{v['leaves']} leaves" for k, v in per_leaf.items()))
+    if not all(err[k] <= tols[k] for k in err) or any(
+            v["worst_ratio"] > 1 for v in per_leaf.values()):
+        raise AssertionError(f"{label}: card and CPU steps differ: {err}, tolerances {tols}, "
+                             f"per leaf {per_leaf}")
+    return {"errors": err, "cpu_spread": spread, "stated_tolerances": stated,
+            "tolerances": tols, "applied": applied, "per_leaf": per_leaf,
+            "loss": [a["loss"], b["loss"]]}
+
+
 def ds2_batch_to(batch, device):
     """A DeepSpeech2 numpy batch as tensors on ``device`` (int32 → int64)."""
     return {k: (torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
             .to(device) for k, v in batch.items() if k != "n_valid"}
 
 
-def ds2_step_ms(ds_train, cfg, batch):
-    """ms per DeepSpeech2 train step at full width on ``batch`` (host clock,
-    ``DS2_TIMED_STEPS`` steps after two warm-up steps, ending in the loss's
-    read-back), with cuDNN's TF32 off and then on; the matrix products'
-    TF32 stays off (PyTorch's default)."""
-    model = ds_train.build_model(cfg, "cuda").train()
-    step = ds_train.make_step(cfg, model, ds_train.make_optimizer(cfg, model))
-    dev = ds2_batch_to(batch, "cuda")
-    out = {}
-    try:
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = tf32
-            for _ in range(2):
-                step(dev)
-            float(step(dev)["loss"])
-            t = time.perf_counter()
-            for _ in range(DS2_TIMED_STEPS):
-                metrics = step(dev)
-            loss = float(metrics["loss"])
-            out["tf32_on" if tf32 else "tf32_off"] = {
-                "ms": 1e3 * (time.perf_counter() - t) / DS2_TIMED_STEPS, "loss": loss}
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-    return out
-
-
 def ds2_card_against_cpu(ds_train, cfg):
-    """One deterministic float32 DeepSpeech2 train step at full width, B=2
-    (390 and 300 frames in the 400 bucket): the card with the CTC kernels
-    against the CPU with the plain recursion, from the same weights and the
-    same running AdamW state (count 3, seeded moments, so that the update is
-    smooth in the gradient). Returns the errors and their tolerances."""
+    """Phase 11's float32 step at full width, B=2 (390 and 300 frames in the
+    400 bucket): the card with the CTC kernels against the CPU with the
+    plain recursion (:func:`card_against_cpu`). The stated tolerances: the
+    losses as phase 8 holds them (1e-4 relative), the gradient norm 1e-3;
+    an update differs from the CPU's by the gradients' error through Adam's
+    smooth quotient (1e-2 of the leaf's largest update); the running
+    statistics carry the activations' error (1e-4 of the leaf's largest)."""
     from mindaudio_torch.models.layers import running_stats
     from mindaudio_torch.recipes.deepspeech2 import dataset as ds
     from mindaudio_torch.recipes.deepspeech2 import synthetic
@@ -1280,55 +1440,14 @@ def ds2_card_against_cpu(ds_train, cfg):
         ids = [ds.CHAR2ID[c] for c in text]
         wavs[i, :len(wav)], wav_lens[i] = wav, len(wav)
         labels[i, :len(ids)], label_lens[i] = ids, len(ids)
-    batch = {"wavs": wavs, "wav_lens": wav_lens, "labels": labels, "label_lens": label_lens}
-
-    card = ds_train.build_model(cfg, "cuda").train()
-    cpu = copy.deepcopy(card).cpu()
-    names = [n for n, _ in card.named_parameters()]
-    moments = {"count": 3,
-               "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
-                      for n, p in card.named_parameters()},
-               "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
-                      for n, p in card.named_parameters()}}
-    out = {}
-    for name, model, device in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
-        opt = ds_train.make_optimizer(cfg, model)
-        opt.load_state_dict(moments)
-        before = [p.detach().clone() for p in model.parameters()]
-        metrics = ds_train.make_step(cfg, model, opt)(ds2_batch_to(batch, device))
-        out[name] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
-                     "update": [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)],
-                     "params": [p.detach().cpu() for p in model.parameters()],
-                     "stats": [t.cpu() for t in running_stats(model)]}
-    a, b = out["card"], out["cpu"]
-    # float32 on both sides, sums in another order (cuDNN's convs and LSTM
-    # against the CPU's): the losses as phase 8 holds them (1e-4 relative),
-    # the gradient norm 1e-3; an update differs from the CPU's by the
-    # gradients' error through Adam's smooth quotient (1e-2 of the leaf's
-    # largest update); the running statistics carry the activations' error
-    # (1e-4 of the leaf's largest statistic)
-    update_err = max(((x - y).abs().max() / y.abs().max()).item()
-                     for x, y in zip(a["update"], b["update"]))
-    worst = max(range(len(names)), key=lambda i: ((a["update"][i] - b["update"][i]).abs().max()
-                                                  / b["update"][i].abs().max()).item())
-    errs = {
-        "loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
-        "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
-        "update": update_err,
-        "params_max_abs": max((x - y).abs().max().item() for x, y in zip(a["params"], b["params"])),
-        "stats": max(((x - y).abs().max() / y.abs().max()).item()
-                     for x, y in zip(a["stats"], b["stats"])),
-    }
-    tols = {"loss": 1e-4, "grad_norm": 1e-3, "update": 1e-2, "stats": 1e-4}
-    log(f"deepspeech2: one float32 step at full width, B=2, card (ctc kernels) vs CPU (plain): "
-        f"loss {a['loss']:.6f} vs {b['loss']:.6f}, grad_norm {a['grad_norm']:.4f} vs "
-        f"{b['grad_norm']:.4f}; errors "
-        + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]})" for k in tols)
-        + f"; worst update in {names[worst]}; parameters after the update within "
-        f"{errs['params_max_abs']:.3e} absolute")
-    if not all(errs[k] <= tols[k] for k in tols):
-        raise AssertionError(f"deepspeech2: card and CPU steps differ: {errs}")
-    return {"errors": errs, "tolerances": tols, "loss": [a["loss"], b["loss"]]}
+    return card_against_cpu(
+        "deepspeech2: one float32 step at full width, B=2, ctc kernels on the card, the plain "
+        "recursion on the CPU", lambda device: ds_train.build_model(cfg, device),
+        lambda model: ds_train.make_optimizer(cfg, model),
+        lambda model, opt: ds_train.make_step(cfg, model, opt),
+        {"wavs": wavs, "wav_lens": wav_lens, "labels": labels, "label_lens": label_lens},
+        "wavs", ds2_batch_to, {"loss": 1e-4, "grad_norm": 1e-3, "update": 1e-2, "stats": 1e-4},
+        stats=running_stats)
 
 
 def deepspeech2_phase(ctc_dp):
@@ -1406,7 +1525,10 @@ def deepspeech2_phase(ctc_dp):
 
         batch = next(b for _, b in ds.batch_iterator(train_json, DS2_BATCH, shuffle=False)
                      if b["wavs"].shape[1] // ds.HOP == 1250)
-        timing = ds2_step_ms(ds_train, cfg, batch)
+        model = ds_train.build_model(cfg, "cuda").train()
+        timing = step_ms(ds_train.make_step(cfg, model, ds_train.make_optimizer(cfg, model)),
+                         ds2_batch_to(batch, "cuda"), DS2_TIMED_STEPS)
+        del model
         log(f"deepspeech2: ms per step at B={DS2_BATCH} x 1250 frames (T' = 626; host clock, "
             f"{DS2_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
             f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f}; "
@@ -1417,33 +1539,6 @@ def deepspeech2_phase(ctc_dp):
                       "window_ms": out["window_ms"], "step_ms_1250": timing,
                       "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes, "eval": result,
                       "card_against_cpu": check}
-
-
-def ecapa_step_ms(tse, cfg, n_classes, batch):
-    """ms per ECAPA-TDNN train step at full width on one fixed batch (host
-    clock, ``ECAPA_TIMED_STEPS`` steps after two warm-up steps, ending in the
-    loss's read-back), with cuDNN's TF32 off and then on; the matrix
-    products' TF32 stays off (PyTorch's default)."""
-    model = tse.build_model(cfg, "cuda", n_classes).train()
-    step = tse.make_step(cfg, model, tse.make_optimizer(cfg, model))
-    dev = {"wavs": torch.from_numpy(batch["wavs"]).cuda(),
-           "labels": torch.from_numpy(batch["labels"]).long().cuda()}
-    out = {}
-    try:
-        for tf32 in (False, True):
-            torch.backends.cudnn.allow_tf32 = tf32
-            for _ in range(2):
-                step(dev)
-            float(step(dev)["loss"])
-            t = time.perf_counter()
-            for _ in range(ECAPA_TIMED_STEPS):
-                metrics = step(dev)
-            loss = float(metrics["loss"])
-            out["tf32_on" if tf32 else "tf32_off"] = {
-                "ms": 1e3 * (time.perf_counter() - t) / ECAPA_TIMED_STEPS, "loss": loss}
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
-    return out
 
 
 def ecapa_host_ms(ds, cfg):
@@ -1467,79 +1562,29 @@ def ecapa_host_ms(ds, cfg):
 
 
 def ecapa_card_against_cpu(tse, cfg, n_classes, wavs, labels):
-    """One deterministic float32 ECAPA-TDNN train step at full width, B=2,
-    cuDNN TF32 off: the card against the CPU, from the same weights and the
-    same running AdamW state (count 3, seeded moments, so that the update is
-    smooth in the gradient) at a learning rate of 0.01 (the schedule's 1e-6
-    at count 3 would move a parameter by a few of its float32 ulps, and the
-    update would measure their rounding).
-
-    The CPU step runs three times: on the batch, and on the batch with every
-    sample moved one float32 ulp up or down (two draws). How far those move
-    the CPU's own results is float32's spread for this batch: a batch norm
-    over two rows (``asp_bn`` normalizes 2 values a channel) turns one
-    rounding of the input into up to 1e-4 of the loss. Each tolerance is the
-    stated one or 4x that spread, the larger. Returns the errors, the
-    spreads and the tolerances."""
+    """Phase 12's float32 step at full width, B=2 (:func:`card_against_cpu`),
+    at a learning rate of 0.01 (the schedule's 1e-6 at count 3 would move a
+    parameter by a few of its float32 ulps, and the update would measure
+    their rounding). A batch norm over two rows (``asp_bn`` normalizes 2
+    values a channel) turns one rounding of the input into up to 1e-4 of
+    the loss, which the one-ulp spread measures. The stated tolerances:
+    float32 on both sides, sums in another order (cuDNN's convs against the
+    CPU's)."""
     from mindaudio_torch.models.layers import running_stats
 
     cfg = copy.deepcopy(cfg)
     cfg.optim.min_lr = cfg.optim.max_lr = 0.01
-    rng = np.random.default_rng(12)
-    card = tse.build_model(cfg, "cuda", n_classes).train()
-    init = copy.deepcopy(card).cpu()
-    names = [n for n, _ in card.named_parameters()]
-    moments = {"count": 3,
-               "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
-                      for n, p in card.named_parameters()},
-               "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
-                      for n, p in card.named_parameters()}}
-    ulp = np.spacing(np.abs(wavs)).astype(np.float32)
-    inputs = [("card", card, "cuda", wavs), ("cpu", init, "cpu", wavs)] + [
-        (f"cpu_ulp{seed}", copy.deepcopy(init), "cpu",
-         wavs + ulp * np.random.default_rng(seed).choice([-1.0, 1.0], wavs.shape).astype(
-             np.float32)) for seed in (1, 2)]
-    out = {}
-    for name, model, device, x in inputs:
-        opt = tse.make_optimizer(cfg, model)
-        opt.load_state_dict(moments)
-        before = [p.detach().clone() for p in model.parameters()]
-        batch = {"wavs": torch.from_numpy(x).to(device),
-                 "labels": torch.from_numpy(labels).long().to(device)}
-        metrics = tse.make_step(cfg, model, opt)(batch)
-        out[name] = {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
-                     "update": [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)],
-                     "stats": [t.cpu() for t in running_stats(model)]}
-
-    def rel(x, y):
-        return ((x - y).abs().max() / y.abs().max()).item()
-
-    def errors(a, b):
-        update = [rel(x, y) for x, y in zip(a["update"], b["update"])]
-        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
-                "grad_norm": abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]),
-                "update": max(update), "stats": max(rel(x, y) for x, y in zip(a["stats"],
-                                                                             b["stats"])),
-                "worst": names[int(np.argmax(update))]}
-
-    a, b = out["card"], out["cpu"]
-    errs = errors(a, b)
-    spreads = [errors(out[f"cpu_ulp{seed}"], b) for seed in (1, 2)]
-    spread = {k: max(s[k] for s in spreads) for k in ("loss", "grad_norm", "update", "stats")}
-    # the stated tolerances: float32 on both sides, sums in another order
-    # (cuDNN's convs against the CPU's)
-    stated = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-3, "stats": 1e-4}
-    tols = {k: max(stated[k], 4 * spread[k]) for k in stated}
-    log(f"ecapa: one float32 step at full width, B=2, card vs CPU: loss {a['loss']:.6f} vs "
-        f"{b['loss']:.6f}, grad_norm {a['grad_norm']:.4f} vs {b['grad_norm']:.4f}; error | "
-        "the CPU's spread over one-ulp input moves | stated tol | tol: "
-        + ", ".join(f"{k} {errs[k]:.3e} | {spread[k]:.3e} | {stated[k]} | {tols[k]:.3e}"
-                    for k in tols)
-        + f"; worst update in {errs['worst']}; {len(a['stats'])} running statistics")
-    if len(a["stats"]) != 62 or not all(errs[k] <= tols[k] for k in tols):
-        raise AssertionError(f"ecapa: card and CPU steps differ: {errs}, tolerances {tols}")
-    return {"errors": errs, "cpu_spread": spread, "stated_tolerances": stated,
-            "tolerances": tols, "loss": [a["loss"], b["loss"]]}
+    check = card_against_cpu(
+        "ecapa: one float32 step at full width, B=2",
+        lambda device: tse.build_model(cfg, device, n_classes),
+        lambda model: tse.make_optimizer(cfg, model),
+        lambda model, opt: tse.make_step(cfg, model, opt), {"wavs": wavs, "labels": labels},
+        "wavs", lambda b, device: {"wavs": torch.from_numpy(b["wavs"]).to(device),
+                                   "labels": torch.from_numpy(b["labels"]).long().to(device)},
+        {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-3, "stats": 1e-4}, stats=running_stats)
+    if check["per_leaf"]["stats"]["leaves"] != 62:
+        raise AssertionError(f"ecapa: {check['per_leaf']['stats']['leaves']} running statistics")
+    return check
 
 
 def ecapa_phase(launch_counters, card):
@@ -1673,7 +1718,12 @@ def ecapa_phase(launch_counters, card):
         _, batch = next(dataset.batch_iterator(cfg.data.train_csv, ECAPA_BATCH,
                                                augmenter=dataset.Augmenter(
                                                    cfg, np.random.default_rng(0))))
-        timing = ecapa_step_ms(tse, cfg, n_classes, batch)
+        model = tse.build_model(cfg, "cuda", n_classes).train()
+        timing = step_ms(tse.make_step(cfg, model, tse.make_optimizer(cfg, model)),
+                         {"wavs": torch.from_numpy(batch["wavs"]).cuda(),
+                          "labels": torch.from_numpy(batch["labels"]).long().cuda()},
+                         ECAPA_TIMED_STEPS)
+        del model
         log(f"ecapa: ms per step at B={ECAPA_BATCH} x 3 s on one batch (host clock, "
             f"{ECAPA_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
             f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f} ({card})")
@@ -1684,6 +1734,178 @@ def ecapa_phase(launch_counters, card):
             "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes,
             "eer": {"cosine": eer_cos, "snorm": eer_snorm}, "step_ms": timing, "host_ms": host,
             "embed_ms": embed_ms, "launches": launches, "card_against_cpu": check}
+
+
+def sep_batch_to(batch, device):
+    """A separation numpy batch as tensors on ``device`` (lengths int64)."""
+    return {k: torch.from_numpy(v).long().to(device) if k == "lengths"
+            else torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def sep_latency_ms(model, separate_fn, mix):
+    """ms to separate ``mix`` (host clock from the copy to the card to the
+    sources' copy back, median of ``SEP_TIMED_STEPS`` after a warm-up)."""
+    model.eval()
+    times = []
+    with torch.no_grad():
+        for i in range(SEP_TIMED_STEPS + 1):
+            t = time.perf_counter()
+            separate_fn(model, torch.from_numpy(mix).cuda()).cpu()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t))
+    model.train()
+    return statistics.median(times)
+
+
+def sep_card_against_cpu(name, recipe, cfg, separate_fn, batch):
+    """Phase 13's float32 step of the recipe at full width, B=2 x 4 s
+    (:func:`card_against_cpu`), at a learning rate of 0.01 (against 1e-3 an
+    update would be a few float32 ulps of some parameters). The stated
+    tolerances: loss 1e-5 relative, each update 1e-4 of its leaf's largest,
+    the gradient norm 1e-4."""
+    from mindaudio_torch.recipes.conv_tasnet import train as conv_train
+
+    cfg = copy.deepcopy(cfg)
+    cfg.optim.lr = 0.01
+    return card_against_cpu(
+        f"{name}: one float32 step at full width, B=2 x 4 s",
+        lambda device: recipe.build_model(cfg, device),
+        lambda model: conv_train.make_optimizer(cfg, model),
+        lambda model, opt: conv_train.make_step(cfg, model, opt, separate_fn), batch, "mix",
+        sep_batch_to, {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-4})
+
+
+def separation_model_phase(name, recipe, evaluator, separate_fn, steps, n_params, root,
+                           launch_counters, card):
+    """One model of phase 13: ``recipe.main()`` for ``steps`` steps at the
+    full width and batch of its YAML on the corpus under ``root``, with a
+    save at the last step, ``evaluator.main()`` on the 4 test mixtures of
+    ``root/tt4``, then the timings and the float32 step against the CPU.
+    Returns the summary."""
+    from mindaudio_torch.data.librimix import separation_batch_iterator
+    from mindaudio_torch.recipes.conv_tasnet import train as conv_train
+    from mindaudio_torch.train import checkpoint
+
+    ckpt_dir = f"{root}/ckpt_{name}"
+    args = ["--data.train_dir", f"{root}/tr", "--data.test_dir", f"{root}/tt4",
+            "--train.ckpt_dir", ckpt_dir, "--train.max_steps", str(steps),
+            "--train.log_every_steps", "1", "--train.save_every_steps", str(steps)]
+    cfg, _ = recipe.parse_args(args)
+    seg = int(float(cfg.data.segment_seconds) * int(cfg.data.sample_rate))
+    if (int(cfg.data.batch_size), seg) != (SEP_BATCH, SEP_SAMPLES):
+        raise AssertionError(f"{name}: not the recipe's batch: {cfg.data}")
+    for counter in launch_counters:
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = recipe.main(args)
+    train_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    scores = evaluator.main(args)
+    eval_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in launch_counters}
+
+    model, losses, window_ms = out["model"], out["losses"], out["window_ms"]
+    saved = checkpoint.list_steps(ckpt_dir)
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{saved[-1]}",
+                                              checkpoint.STATE_FILE))
+    final = checkpoint.restore_checkpoint(ckpt_dir)
+    count = sum(t.numel() for t in final["params"].values())
+    restored = all(torch.equal(final["params"][n], p.detach().cpu())
+                   for n, p in model.named_parameters())
+    log(f"{name}: train {out['steps']} steps {train_s:.1f} s at B={SEP_BATCH} x 4 s, full width "
+        f"({count} params); peak memory {peak_gib:.2f} GiB; steps saved {saved}, {ckpt_bytes} "
+        f"bytes a checkpoint, restores to the trained parameters {restored} ({card})")
+    log(f"{name}: -SI-SNR per step " + " ".join(f"{losses[s]:.3f}" for s in sorted(losses)))
+    log(f"{name}: the recipe's ms per step (host clock, each step ending in the loss's "
+        "read-back, the collate in the prefetch thread): "
+        + " ".join(f"{v:.1f}" for v in window_ms)
+        + f"; median {statistics.median(window_ms):.1f} ({card})")
+    log(f"{name}: eval on {scores['utts']} test mixtures of 4 s: SI-SNRi {scores['si_snri']:.2f} "
+        f"dB, SDRi {scores['sdri']:.2f} dB ({eval_s:.1f} s, BSS Eval on the host); not judged "
+        f"after {steps} steps")
+    log(f"{name}: kernel launches over train and eval {launches} (the path has no TPU kernel: "
+        "the JAX model is XLA code throughout)")
+    later = [losses[s] for s in sorted(losses) if s > 1]
+    if out["steps"] != steps or len(losses) != steps or not np.isfinite(list(losses.values())).all():
+        raise AssertionError(f"{name}: {out['steps']} steps, losses {losses}")
+    if not min(later) < losses[1]:
+        raise AssertionError(f"{name}: the loss did not fall below the first step's: {losses}")
+    if count != n_params or saved != [steps] or not restored:
+        raise AssertionError(f"{name}: {count} params, steps saved {saved}, restored {restored}")
+    if scores["utts"] != 4 or not np.isfinite([scores["si_snri"], scores["sdri"]]).all():
+        raise AssertionError(f"{name}: eval {scores}")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: a kernel launched on the separation path: {launches}")
+
+    it = separation_batch_iterator(cfg.data.train_dir, SEP_BATCH, seg, epochs=SEP_HOST_BATCHES)
+    collate = []
+    for _ in range(SEP_HOST_BATCHES):
+        t = time.perf_counter()
+        _, batch = next(it)
+        collate.append(1e3 * (time.perf_counter() - t))
+    log(f"{name}: the host's collate ms per batch of {SEP_BATCH} x 4 s (apart from the card): "
+        + " ".join(f"{v:.1f}" for v in collate))
+    latency = {"one": sep_latency_ms(model, separate_fn, batch["mix"][:1]),
+               "batch": sep_latency_ms(model, separate_fn, batch["mix"])}
+    log(f"{name}: separation latency, host clock from the mixture's copy to the card to the "
+        f"sources' copy back: one 4 s mixture {latency['one']:.2f} ms, a batch of {SEP_BATCH} "
+        f"{latency['batch']:.2f} ms ({card})")
+    del model, out
+    torch.cuda.empty_cache()
+    model = recipe.build_model(cfg, "cuda").train()
+    timing = step_ms(conv_train.make_step(cfg, model, conv_train.make_optimizer(cfg, model),
+                                          separate_fn), sep_batch_to(batch, "cuda"),
+                     SEP_TIMED_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    log(f"{name}: ms per step at B={SEP_BATCH} x 4 s on one batch (host clock, {SEP_TIMED_STEPS} "
+        f"steps ending in a read-back): cuDNN TF32 off {timing['tf32_off']['ms']:.2f}, on "
+        f"{timing['tf32_on']['ms']:.2f} ({card})")
+    check = sep_card_against_cpu(name, recipe, cfg, separate_fn,
+                                 {k: v[:2] for k, v in batch.items()})
+    torch.cuda.empty_cache()
+    return {"steps": steps, "params": count, "losses": losses, "window_ms": window_ms,
+            "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes, "eval": scores,
+            "eval_s": eval_s, "collate_ms": collate, "latency_ms": latency, "step_ms": timing,
+            "launches": launches, "card_against_cpu": check}
+
+
+def separation_phase(launch_counters, card):
+    """Phase 13: the Conv-TasNet and TasNet recipes (``mindaudio_torch/
+    recipes/conv_tasnet``, ``recipes/tasnet``) as a user runs them, at the
+    full width of their YAMLs, on a corpus of 4 s mixtures from
+    ``convergence_run.make_corpus`` in a temporary directory (LibriMix is
+    not in the repository). ``launch_counters`` are the port's kernel
+    wrappers: the path runs none of them. Returns the summary by model."""
+    import tempfile
+
+    from mindaudio_torch.recipes.conv_tasnet import convergence_run
+    from mindaudio_torch.recipes.conv_tasnet import eval as conv_eval
+    from mindaudio_torch.recipes.conv_tasnet import train as conv_train
+    from mindaudio_torch.recipes.tasnet import eval as tas_eval
+    from mindaudio_torch.recipes.tasnet import train as tas_train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sep_") as root:
+        t = time.perf_counter()
+        convergence_run.make_corpus(root, n_utts=SEP_TRAIN_UTTS, seconds=4.0)
+        os.makedirs(f"{root}/tt4")
+        for part in ("mix", "s1", "s2"):
+            with open(f"{root}/tt/{part}.json") as f:
+                entries = json.load(f)[:4]
+            with open(f"{root}/tt4/{part}.json", "w") as f:
+                json.dump(entries, f)
+        log(f"separation: gen {SEP_TRAIN_UTTS} training and 8 test mixtures of 4 s at 8 kHz "
+            f"{time.perf_counter() - t:.1f} s")
+        return {
+            "conv_tasnet": separation_model_phase(
+                "conv_tasnet", conv_train, conv_eval, conv_train.separate, SEP_CONV_STEPS,
+                3_445_808, root, launch_counters, card),
+            "tasnet": separation_model_phase(
+                "tasnet", tas_train, tas_eval, tas_train.separate_full, SEP_TASNET_STEPS,
+                16_578_000, root, launch_counters, card),
+        }
 
 
 def main():
@@ -1701,6 +1923,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--profile-train"]:
         profile_train()
+        return 0
+    if sys.argv[1:] == ["--profile-separation"]:
+        profile_separation()
         return 0
     log("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
         "cudnn", torch.backends.cudnn.allow_tf32)
@@ -2050,6 +2275,15 @@ def main():
         k: v for k, v in ecapa.items() if k not in ("losses", "window_ms")}}))
     ecapa_launches = ecapa["launches"]
 
+    # 13. the Conv-TasNet and TasNet recipes at full width: no TPU kernel on
+    # their path
+    separation = separation_phase(kernels, card)
+    for name, summary in separation.items():
+        log(f"{name}: " + json.dumps({"card": card, **{
+            k: v for k, v in summary.items() if k not in ("losses", "window_ms")}}))
+    sep_launches = {k: sum(s["launches"][k] for s in separation.values())
+                    for k in ecapa_launches}
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -2068,6 +2302,7 @@ def main():
         "stream_launches": stream_launches, "stream": stream,
         "stream_shapes": [r for r in stream_results if r["m"] == STREAM_CHUNK and "ms" in r],
         "ecapa_tdnn_launches": ecapa_launches["int8_matmul"],
+        "separation_launches": sep_launches["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2082,6 +2317,7 @@ def main():
         "deepspeech2_launches": ds2_launches[0], "deepspeech2": ds2, "deepspeech2_ctc": ds2_ctc,
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_fwd"],
+        "separation_launches": sep_launches["ctc_dp_fwd"],
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2093,7 +2329,8 @@ def main():
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
         "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
-        "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"], "card": card,
+        "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"],
+        "separation_launches": sep_launches["ctc_dp_bwd"], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",
@@ -2103,6 +2340,7 @@ def main():
         "bound_by": mel["bound_by"], "library_ms": None, "shape": mel["shape"], "passes": 3,
         "card": card, "shapes": logmel_results,
         "ecapa_tdnn_launches": ecapa_launches["fused_logmel"],
+        "separation_launches": sep_launches["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """JAX (flax) parameters → the port's ``state_dict``.
 
-The port's module names follow the flax ones, with four renames
+The port's module names follow the flax ones, with five renames
 (``Dense_0``/``Dense_1`` of the feed-forward blocks are ``w_1``/``w_2``,
-the subsampling's ``Conv_0``/``Conv_1`` are ``conv1``/``conv2``) and
-``layer_<i>`` becoming ``layers.<i>`` of an ``nn.ModuleList``. Leaves
-change layout as PyTorch wants it:
+the subsampling's ``Conv_0``/``Conv_1`` are ``conv1``/``conv2``,
+Conv-TasNet's ``PReLU_0`` is ``prelu``) and ``layer_<i>`` becoming
+``layers.<i>`` of an ``nn.ModuleList``. Leaves change layout as PyTorch
+wants it:
 
 - Dense ``kernel`` ``(in, out)`` → ``Linear.weight`` ``(out, in)``;
 - Conv2d ``kernel`` HWIO → OIHW;
@@ -15,6 +16,15 @@ change layout as PyTorch wants it:
   ``weight``;
 - DeepSpeech2's BiLSTM ``wx (2, D, 4H)`` / ``wh (2, H, 4H)`` →
   ``weight_ih (2, 4H, D)`` / ``weight_hh (2, 4H, H)``;
+- flax's ``OptimizedLSTMCell_<n>`` (TasNet's; gates ``ii``/``if``/``ig``/
+  ``io`` without bias and ``hi``/``hf``/``hg``/``ho`` with one): cell
+  ``2i + d`` is direction ``d`` of the port's ``lstm_<i>`` (a BiLSTM), its
+  kernels transposed and stacked in the gate order i, f, g, o into
+  ``weight_ih[d]`` and ``weight_hh[d]``, the ``h*`` biases into
+  ``bias[d]``; a cell whose leaves are not exactly those twelve, or a
+  layer with one direction, raises;
+- Conv-TasNet's layer norms' ``gamma``/``beta`` ``(1, 1, C)`` → ``(C,)``;
+  PReLU's ``negative_slope`` ``()`` → ``weight (1,)``;
 - ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across;
 - with ``batch_stats``, a batch norm's ``mean``/``var`` → its
   ``running_mean``/``running_var`` buffers.
@@ -25,6 +35,7 @@ carries an optax state across by the same rules.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -32,7 +43,8 @@ import torch
 
 __all__ = ["module_name", "convert_params", "convert_adamw_state"]
 
-_RENAME = {"Dense_0": "w_1", "Dense_1": "w_2", "Conv_0": "conv1", "Conv_1": "conv2"}
+_RENAME = {"Dense_0": "w_1", "Dense_1": "w_2", "Conv_0": "conv1", "Conv_1": "conv2",
+           "PReLU_0": "prelu"}
 _KERNEL_LAYOUT = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
 
 
@@ -59,16 +71,56 @@ def _flatten(tree, prefix=()):
 
 _LSTM = {"wx": "weight_ih", "wh": "weight_hh"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_CELL = re.compile(r"^OptimizedLSTMCell_(\d+)$")
+_CELL_LEAVES = {(f"{side}{g}", "kernel") for side in "ih" for g in "ifgo"} | {
+    (f"h{g}", "bias") for g in "ifgo"}
+
+
+def _gates(cell, side, leaf):
+    """One cell's ``<side>i``, ``<side>f``, ``<side>g``, ``<side>o`` leaves
+    stacked along the output axis: kernels ``(in, H)`` → ``(4H, in)``,
+    biases → ``(4H,)``."""
+    arrs = [np.asarray(cell[(side + g, leaf)], np.float32) for g in "ifgo"]
+    return np.concatenate([a.T if leaf == "kernel" else a for a in arrs])
+
+
+def _lstm_cells(leaves):
+    """Split the leaves of flax ``OptimizedLSTMCell_<n>`` modules off
+    ``leaves``; returns ``(the other leaves, {key: tensor})`` with the
+    cells stacked into the port's BiLSTM parameters."""
+    cells, rest = {}, []
+    for path, leaf in leaves:
+        match = _CELL.match(path[-3]) if len(path) >= 3 else None
+        if match is None:
+            rest.append((path, leaf))
+        else:
+            cells.setdefault((path[:-3], int(match.group(1))), {})[path[-2:]] = leaf
+    layers = {}
+    for (scope, n), cell in sorted(cells.items()):
+        if set(cell) != _CELL_LEAVES:
+            raise ValueError(f"convert_params: OptimizedLSTMCell_{n} has leaves "
+                             f"{sorted(cell)}, not {sorted(_CELL_LEAVES)}")
+        layers.setdefault((scope, n // 2), {})[n % 2] = cell
+    state = {}
+    for (scope, i), dirs in layers.items():
+        if set(dirs) != {0, 1}:
+            raise ValueError(f"convert_params: LSTM layer {i} has directions {sorted(dirs)}")
+        prefix = ".".join(filter(None, (module_name(scope), f"lstm_{i}")))
+        for name, side, leaf in (("weight_ih", "i", "kernel"), ("weight_hh", "h", "kernel"),
+                                 ("bias", "h", "bias")):
+            arr = np.stack([_gates(dirs[d], side, leaf) for d in (0, 1)])
+            state[f"{prefix}.{name}"] = torch.from_numpy(arr)
+    return rest, state
 
 
 def convert_params(params, batch_stats=None):
     """Nested dict of arrays (``model.init(...)["params"]``, and optionally
     its ``"batch_stats"``) → float32 ``state_dict`` tensors (CPU) keyed by the
     port's parameter and buffer names."""
-    state = {}
     leaves = list(_flatten(params))
     if batch_stats is not None:
         leaves += [(path[:-1] + (_STATS[path[-1]],), leaf) for path, leaf in _flatten(batch_stats)]
+    leaves, state = _lstm_cells(leaves)
     for path, leaf in leaves:
         arr = np.asarray(leaf, dtype=np.float32)
         *mod, leaf_name = path
@@ -78,6 +130,10 @@ def convert_params(params, batch_stats=None):
             arr, leaf_name = arr.transpose(0, 2, 1), _LSTM[leaf_name]
         elif leaf_name in ("scale", "embedding"):
             leaf_name = "weight"
+        elif leaf_name in ("gamma", "beta"):
+            arr = arr.reshape(-1)
+        elif leaf_name == "negative_slope":
+            arr, leaf_name = arr.reshape(1), "weight"
         key = ".".join(filter(None, (module_name(mod), leaf_name)))
         state[key] = torch.from_numpy(np.array(arr, order="C"))
     return state

@@ -1,2 +1,2 @@
 """Host-side data layer (port of ``mindaudio_tpu.data``): WAV I/O, resampling,
-waveform augmentation and the VoxCeleb CSVs."""
+waveform augmentation, the VoxCeleb CSVs and the LibriMix JSON lists."""

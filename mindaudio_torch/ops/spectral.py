@@ -1,7 +1,8 @@
 """Spectral front-ends on the device (port of ``mindaudio_tpu.ops.spectral``):
 the Kaldi log-mel fbank, the STFT, the magnitude/power spectrogram, the mel
 spectrogram and the dB log-mel ``fbank`` (ECAPA-TDNN's front end) with its
-deltas and context window.
+deltas and context window; and ``overlap_and_add``, the inverse of
+framing, on which the separation models rebuild their waveforms.
 
 The DFT is a matmul against a cached cos/sin basis, as in the JAX package:
 at n_fft = 512 two ``(frames, 512) @ (512, 257)`` products are cheaper to
@@ -23,7 +24,7 @@ from .. import check_generator, resolve_device
 from .filterbanks import get_window, kaldi_mel_banks, melscale_fbanks
 
 __all__ = ["frame_signal", "stft", "spectrogram", "melscale", "melspectrogram",
-           "amplitude_to_db", "fbank", "compute_deltas", "kaldi_fbank"]
+           "amplitude_to_db", "fbank", "compute_deltas", "kaldi_fbank", "overlap_and_add"]
 
 LOG_FLOOR = 1.1920928955078125e-07  # float32 machine epsilon, as kaldi
 
@@ -238,6 +239,29 @@ def frame_signal(x, n_fft, hop_length, n_frames):
     if x.shape[-1] < need:
         x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
     return x[..., :need].unfold(-1, k * hop_length, hop_length)
+
+
+def overlap_and_add(signal, frame_step):
+    """``(..., frames, frame_length) -> (..., frame_step * (frames - 1) +
+    frame_length)``: each frame added in at ``frame * frame_step``.
+
+    The frames are cut into subframes of ``gcd(frame_length, frame_step)``
+    samples; subframe ``s`` of every frame lands on output subframe ``frame *
+    step_sub + s``, so the sum is ``frame_length / gcd`` strided adds, one
+    per ``s``. They run from the last ``s`` to the first, so each output
+    sample sums its frames in increasing order, as the JAX package's
+    ``segment_sum`` does. No atomics: the result is deterministic.
+    """
+    frames, frame_length = signal.shape[-2:]
+    sub = math.gcd(frame_length, frame_step)
+    step_sub, frame_sub = frame_step // sub, frame_length // sub
+    output_size = frame_step * (frames - 1) + frame_length
+    lead = signal.shape[:-2]
+    subframes = signal.reshape(lead + (frames, frame_sub, sub))
+    out = signal.new_zeros(lead + (output_size // sub, sub))
+    for s in reversed(range(frame_sub)):
+        out[..., s:s + (frames - 1) * step_sub + 1:step_sub, :] += subframes[..., s, :]
+    return out.reshape(lead + (output_size,))
 
 
 def kaldi_fbank(

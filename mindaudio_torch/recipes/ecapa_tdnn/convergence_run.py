@@ -15,13 +15,17 @@ on, then ``speaker_verification_cosine.main`` scores every enrol × test
 pair without and with adaptive s-norm. ``results.json`` (the EERs and the
 run's settings) and ``scores.npz`` (the cosine scores of the positive and
 negative trials after the mean subtraction) are written to
-``convergence_artifacts/`` beside this file.
+``convergence_artifacts/`` beside this file; with ``--init-seed n`` other
+than 0 (the seed of the weights' generator, ``train_speaker_embeddings.
+INIT_SEED``) they are ``results_seed<n>.json`` and ``scores_seed<n>.npz``,
+and the checkpoints go to ``<root>/ckpt_seed<n>``, so that runs at several
+seeds can share one corpus.
 
 Usage::
 
     python -m mindaudio_torch.recipes.ecapa_tdnn.convergence_run [--steps 900] \\
         [--speakers 32] [--batch 64] [--n-train 14] [--n-eval 2] [--root DIR] \\
-        [--extra --device cpu ...]
+        [--init-seed 0] [--extra --device cpu ...]
 """
 
 from __future__ import annotations
@@ -141,6 +145,8 @@ def parse_args(argv=None):
     ap.add_argument("--n-eval", type=int, default=2, help="enrol AND test utterances per speaker")
     ap.add_argument("--gen-only", action="store_true", help="write the corpus and exit")
     ap.add_argument("--root", default=None)
+    ap.add_argument("--init-seed", type=int, default=0,
+                    help="seed of the weights' generator (train_speaker_embeddings.INIT_SEED)")
     ap.add_argument("--extra", nargs=argparse.REMAINDER, default=[],
                     help="flags passed through to the recipe's train and eval (e.g. --extra "
                          "--device cpu --optim.max_lr 0.002)")
@@ -157,6 +163,8 @@ def main(argv=None):
                     n_test=args.n_eval)
     if args.gen_only:
         return None
+    tse.INIT_SEED = args.init_seed
+    suffix = f"_seed{args.init_seed}" if args.init_seed else ""
 
     overrides = [
         "--data.train_csv", os.path.join(root, "train.csv"),
@@ -167,7 +175,7 @@ def main(argv=None):
         "--optim.epochs", "100000",
         "--optim.max_lr", "0.001",
         "--optim.cycle_steps", str(max(200, args.steps // 2)),
-        "--train.ckpt_dir", os.path.join(root, "ckpt"),
+        "--train.ckpt_dir", os.path.join(root, "ckpt" + suffix),
         "--train.max_steps", str(args.steps),
         "--train.save_every_steps", str(args.steps),
         "--train.log_every_steps", "50",
@@ -175,7 +183,8 @@ def main(argv=None):
     ] + list(args.extra)
 
     train = tse.main(overrides)
-    results = {"steps": args.steps, "speakers": args.speakers, "batch": args.batch}
+    results = {"steps": args.steps, "speakers": args.speakers, "batch": args.batch,
+               "init_seed": args.init_seed}
     results["eer_cosine"] = float(sv.main(overrides + ["--eval.score_norm", "false"]))
     results["eer_snorm"] = float(sv.main(overrides + ["--eval.score_norm", "true"]))
 
@@ -188,13 +197,13 @@ def main(argv=None):
     mean = np.mean(np.stack(list(embs.values())), axis=0)
     pos, neg = sv.score_trials(sv.subtract_mean(embs, mean), sv.read_pairs(cfg.data.veri_pairs))
     os.makedirs(OUT_DIR, exist_ok=True)
-    np.savez_compressed(os.path.join(OUT_DIR, "scores.npz"), pos=np.asarray(pos),
+    np.savez_compressed(os.path.join(OUT_DIR, f"scores{suffix}.npz"), pos=np.asarray(pos),
                         neg=np.asarray(neg))
     results["n_pos"], results["n_neg"] = len(pos), len(neg)
     results["pos_mean"] = float(np.mean(pos))
     results["neg_mean"] = float(np.mean(neg))
     results["train_window_ms"] = train["window_ms"]
-    with open(os.path.join(OUT_DIR, "results.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"results{suffix}.json"), "w") as f:
         json.dump(results, f, indent=1)
     print(json.dumps(results), flush=True)
     return results
