@@ -8,7 +8,8 @@ Run from the root of the repository, with no arguments::
 (``python3 chip_smoke.py --profile-train`` instead profiles a few train steps
 with ``torch.profiler`` and prints the device's busy share and the kernels by
 device time; ``--profile-separation`` does the same for the Conv-TasNet and
-TasNet steps of phase 13; neither checks anything.)
+TasNet steps of phase 13, ``--profile-tts`` for the FastSpeech2 step of
+phase 14; none of them checks anything.)
 
 Phases, each of which fails the run (non-zero exit) when it does not hold:
 
@@ -59,7 +60,9 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    block path also times rung (d), the block kernels' step);
 6. hold the fused log-mel kernel (three TF32 tensor-core passes) against its
    plain version at both precisions: at the bench shape ``(128, 160000)``,
-   at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)``, at
+   at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)`` (the
+   kernel at their shapes; the FastSpeech2 recipe of phase 14 does not use
+   this entry point: its mels are host NumPy, as in JAX), at
    ``(3, 16037)`` with 40 mels, with ``kaldi=True`` and with
    ``center=False``, with hop 100 and a hamming window, and on a signal
    shorter than a frame; time the kernel and the plain version in turns
@@ -165,7 +168,29 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    on the card against the CPU: the loss within 1e-5 relative and the
    gradient norm within 1e-4, or 4x the CPU's own spread over one-ulp moves
    of the input, the larger; each update within 1e-4 of its leaf's largest
-   or 4x that leaf's own spread, the larger.
+   or 4x that leaf's own spread, the larger;
+14. the FastSpeech2 recipe (``mindaudio_torch/recipes/fastspeech2``) as a
+   user runs it, at the full width of ``fastspeech2.yaml`` (d_model 256, 2
+   heads, FFN 1024 with kernel 9, 4 + 6 FFT blocks, 80 mels, 288 symbols,
+   30,279,507 parameters, float32): write 96 utterances in LJSpeech's
+   layout at 22.05 kHz (``synthetic.gen``: half with MFA-style TextGrid
+   alignments, the rest split evenly; 43-207 phonemes and up to about
+   1,100 frames, so the truncation to 160 phonemes and the clamp into
+   1000 frames run), ``preprocess.main()`` (YIN pitch, RMS energy, mels
+   on the host), ``train.main()`` for 20 steps at B = 32 x 160 x 1000 with
+   a save at the last (warm-up 10 steps: the YAML's 1000 would hold the
+   learning rate at 2e-5 or less), then ``generate.main()`` for an English
+   sentence and for ``--pinyin`` text. Every loss must be finite, the mean
+   of the last five below the first five's, the parameters moved (the
+   first update moves nothing: the schedule is 0 at step 0), the
+   checkpoint restored into a fresh model must give the trained model's
+   parameters and output, each mel finite with at most 1000 frames, and
+   none of the port's kernels may launch. Prints the recipe's ms per step,
+   the host's collate apart, ms per step on one batch with cuDNN's TF32 off
+   and on, the peak memory, the bytes of a checkpoint and ``infer``'s
+   latency for one sentence and a batch of 16; then holds one float32 step
+   at full width (B = 2, dropout off, TF32 off) on the card against the CPU
+   under the rule of 13.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -218,6 +243,15 @@ ECAPA_BATCH, ECAPA_STEPS, ECAPA_TIMED_STEPS, ECAPA_HOST_BATCHES = 192, 20, 10, 3
 # and trains Conv-TasNet 20 steps and TasNet 10, each with a save at the last
 SEP_BATCH, SEP_SAMPLES, SEP_TRAIN_UTTS = 16, 32000, 32
 SEP_CONV_STEPS, SEP_TASNET_STEPS, SEP_TIMED_STEPS, SEP_HOST_BATCHES = 20, 10, 10, 3
+# FastSpeech2 (recipes/fastspeech2/fastspeech2.yaml, full width): phase 14
+# writes 96 utterances in LJSpeech's layout (three batches of 32 an epoch)
+# and trains 20 steps at 160 phonemes x 1000 frames with a save at the last
+FS2_UTTS, FS2_BATCH, FS2_PHONEMES, FS2_FRAMES = 96, 32, 160, 1000
+FS2_STEPS, FS2_TIMED_STEPS, FS2_HOST_BATCHES, FS2_PARAMS = 20, 10, 3, 30_279_507
+FS2_WARMUP = 10  # the YAML's 1000 would hold the learning rate at 2e-5 or less
+FS2_TEXT = "Printing, in the only sense with which we are at present concerned, differs " \
+           "from most if not from all the arts and crafts represented in the Exhibition."
+FS2_PINYIN = "zhong1 guo2 ren2 min2 yin2 hang2 fa1 xing2 de5 ren2 min2 bi4"
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -1908,6 +1942,259 @@ def separation_phase(launch_counters, card):
         }
 
 
+def fs2_batch_to(batch, device):
+    """A FastSpeech2 numpy batch as tensors on ``device`` (int32 → int64)."""
+    return {k: (torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v))
+            .to(device) for k, v in batch.items()}
+
+
+def fs2_random_batch(b, seed=0):
+    """A batch at the recipe's bounds from seeded noise: every row 160
+    phonemes of 1-10 frames, clamped into 1000 frames as the batch iterator
+    clamps them."""
+    rng = np.random.default_rng(seed)
+    dur = rng.integers(1, 11, (b, FS2_PHONEMES))
+    cum = np.cumsum(dur, 1)
+    dur = np.where(cum <= FS2_FRAMES, dur, np.maximum(FS2_FRAMES - (cum - dur), 0))
+    return {"phonemes": rng.integers(1, 288, (b, FS2_PHONEMES)).astype(np.int32),
+            "src_lens": np.full(b, FS2_PHONEMES, np.int32),
+            "mel": rng.standard_normal((b, FS2_FRAMES, 80)).astype(np.float32),
+            "pitch": rng.uniform(4.5, 5.5, (b, FS2_PHONEMES)).astype(np.float32),
+            "energy": rng.uniform(0.0, 1.0, (b, FS2_PHONEMES)).astype(np.float32),
+            "duration": dur.astype(np.int32)}
+
+
+def profile_tts():
+    """``--profile-tts``: the FastSpeech2 recipe's train step at full width
+    on one seeded batch of B = 32 x 160 phonemes x 1000 frames (cuDNN TF32
+    off)."""
+    from mindaudio_torch.recipes.fastspeech2 import train as fs2_train
+
+    cfg, _, _ = fs2_train.parse_args([])
+    fs2, net = fs2_train.build_model(cfg, "cuda")
+    net.train()
+    fs2.set_dropout_generator(torch.Generator(device="cuda").manual_seed(7))
+    step = fs2_train.make_step(cfg, net, fs2_train.make_optimizer(cfg, net))
+    profile_steps("fastspeech2", step, fs2_batch_to(fs2_random_batch(FS2_BATCH), "cuda"))
+
+
+def fs2_step_flops(cfg, batch):
+    """Operations of one FastSpeech2 train step on ``batch`` (2 per
+    multiply-add; the backward's two products make it 3x the forward's):
+    every block's kernel-9 and kernel-1 convs, four projections and two
+    attention products at the padded lengths, the three variance
+    predictors (two kernel-3 convs of 256 filters) and the mel head."""
+    m = cfg.model
+    d, f, n_mels = int(m.d_model), int(m.conv_filter), int(cfg.data.n_mels)
+    b, length = batch["phonemes"].shape
+    frames = batch["mel"].shape[1]
+
+    def block(t):
+        return 2 * t * (d * f * 9 + f * d + 4 * d * d) + 4 * t * t * d
+
+    forward = b * (int(m.encoder_layers) * block(length) + int(m.decoder_layers) * block(frames)
+                   + 3 * 2 * length * (d * 256 * 3 + 256 * 256 * 3 + 256)
+                   + 2 * frames * d * n_mels)
+    return 3 * forward
+
+
+def fs2_infer_ms(fs2, phonemes, lens):
+    """ms of ``infer`` at 1000 frames (host clock from the phonemes' copy to
+    the card to the read-back of ``mel_len``, median of
+    ``FS2_TIMED_STEPS`` after a warm-up)."""
+    times = []
+    for i in range(FS2_TIMED_STEPS + 1):
+        t = time.perf_counter()
+        out = fs2.infer(torch.from_numpy(phonemes).long().cuda(),
+                        torch.from_numpy(lens).long().cuda(), FS2_FRAMES)
+        out[4].cpu()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def fs2_card_against_cpu(fs2_train, cfg, batch):
+    """Phase 14's float32 step at full width, B = 2, dropout off
+    (:func:`card_against_cpu`, one-ulp moves of the pitch targets for the
+    CPU's spread), at a learning rate of 0.05 with a warm-up of 4 steps
+    (0.0375 at AdamW's count 3: against the recipe's 3e-6 there an update
+    would be a few float32 ulps of some parameters). The stated
+    tolerances: loss 1e-5 relative, each update 1e-4 of its leaf's largest,
+    the gradient norm 1e-4."""
+    cfg = copy.deepcopy(cfg)
+    cfg.optim.lr, cfg.optim.warmup_steps = 0.05, 4
+
+    from mindaudio_torch.models.layers import FastDropout
+
+    def build(device):
+        fs2, net = fs2_train.build_model(cfg, device)
+        for m in net.modules():
+            if isinstance(m, FastDropout):  # the predictors' fixed 0.5 too
+                m.rate = 0.0
+        return net
+
+    return card_against_cpu(
+        "fastspeech2: one float32 step at full width, B=2, dropout off", build,
+        lambda net: fs2_train.make_optimizer(cfg, net),
+        lambda net, opt: fs2_train.make_step(cfg, net, opt), batch, "pitch", fs2_batch_to,
+        {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-4})
+
+
+def fastspeech2_phase(launch_counters, card):
+    """Phase 14: the FastSpeech2 recipe (``mindaudio_torch/recipes/
+    fastspeech2``) as a user runs it, at the full width of
+    ``fastspeech2.yaml``, on a corpus in LJSpeech's layout that
+    ``synthetic.gen`` writes into a temporary directory (LJSpeech is not in
+    the repository): ``preprocess.main()``, ``train.main()`` with a save at
+    the last step, the checkpoint restored to the trained model's output,
+    ``generate.main()`` for English and pinyin text, the timings, and one
+    float32 step against the CPU. ``launch_counters`` are the port's kernel
+    wrappers: the path runs none of them. Returns the summary."""
+    import tempfile
+
+    from mindaudio_torch.recipes.fastspeech2 import generate, preprocess, synthetic
+    from mindaudio_torch.recipes.fastspeech2 import train as fs2_train
+    from mindaudio_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fs2_") as root:
+        for counter in launch_counters:
+            counter.launches = 0
+        t = time.perf_counter()
+        lj, feature_dir = synthetic.gen(root, n_utts=FS2_UTTS)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        entries = preprocess.main(["--data.ljspeech_dir", lj, "--data.feature_dir", feature_dir])
+        prep_s = time.perf_counter() - t
+        feats = [np.load(f"{feature_dir}/{e}.npy", allow_pickle=True).item() for e in entries]
+        n_ph = [len(f["phonemes"]) for f in feats]
+        n_fr = [f["mel"].shape[0] for f in feats]
+        aligned = len(os.listdir(f"{feature_dir}/TextGrid"))
+        log(f"fastspeech2: gen {FS2_UTTS} utterances in LJSpeech's layout at 22.05 kHz "
+            f"({aligned} with TextGrid alignments) {gen_s:.1f} s; preprocess (YIN pitch, RMS "
+            f"energy, mels on the host) {prep_s:.1f} s: {len(entries)} utterances, "
+            f"{min(n_ph)}-{max(n_ph)} phonemes, {min(n_fr)}-{max(n_fr)} frames")
+        if len(entries) != FS2_UTTS or max(n_ph) <= FS2_PHONEMES or max(n_fr) <= FS2_FRAMES:
+            raise AssertionError("fastspeech2: the corpus does not reach the recipe's bounds: "
+                                 f"{len(entries)} utterances, {max(n_ph)} phonemes, "
+                                 f"{max(n_fr)} frames")
+
+        ckpt_dir = f"{root}/ckpt"
+        args = ["--data.feature_dir", feature_dir, "--train.ckpt_dir", ckpt_dir,
+                "--train.max_steps", str(FS2_STEPS), "--train.log_every_steps", "1",
+                "--train.save_every_steps", str(FS2_STEPS),
+                "--optim.warmup_steps", str(FS2_WARMUP)]
+        cfg, _, _ = fs2_train.parse_args(args)
+        d = cfg.data
+        if (int(d.batch_size), int(d.max_phoneme_len), int(d.max_mel_len)) != (
+                FS2_BATCH, FS2_PHONEMES, FS2_FRAMES):
+            raise AssertionError(f"fastspeech2: not the recipe's batch: {d}")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fs2_train.main(args)
+        train_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        mels = {}
+        t = time.perf_counter()
+        for name, extra in (("english", ["--text", FS2_TEXT]),
+                            ("pinyin", ["--text", FS2_PINYIN, "--pinyin"])):
+            mels[name] = generate.main(extra + ["--output", f"{root}/{name}.npy"] + args)
+        generate_s = time.perf_counter() - t
+        launches = {c.__name__: c.launches for c in launch_counters}
+
+        fs2, net, losses, window_ms = out["model"], out["net"], out["losses"], out["window_ms"]
+        n_params = sum(p.numel() for p in fs2.parameters())
+        saved = checkpoint.list_steps(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{saved[-1]}",
+                                                  checkpoint.STATE_FILE))
+        restored, _ = fs2_train.build_model(cfg, "cuda", init_seed=1)
+        fs2_train.load_params(restored, checkpoint.restore_checkpoint(ckpt_dir)["params"])
+        init, _ = fs2_train.build_model(cfg, "cuda")
+        moved = sum(not torch.equal(a, b) for a, b in zip(init.parameters(), fs2.parameters()))
+        del init
+        batch = next(fs2_train.batches(cfg))[1]
+        ph = torch.from_numpy(batch["phonemes"][:4]).long().cuda()
+        lens = torch.from_numpy(batch["src_lens"][:4]).long().cuda()
+        want, got = fs2.infer(ph, lens, FS2_FRAMES), restored.infer(ph, lens, FS2_FRAMES)
+        same_output = all(torch.equal(a, b) for a, b in zip(restored.parameters(),
+                                                             fs2.parameters())) and all(
+            torch.allclose(a.float(), b.float(), rtol=0, atol=1e-6 * (1 + b.abs().max().item()))
+            for a, b in zip(got, want))
+        del restored
+        curve = [losses[s]["loss"] for s in sorted(losses)]
+        log(f"fastspeech2: train {out['steps']} steps {train_s:.1f} s at B={FS2_BATCH} x "
+            f"{FS2_PHONEMES} phonemes x {FS2_FRAMES} frames, full width ({n_params} params, "
+            f"{moved} of {len(list(fs2.parameters()))} tensors moved); peak memory "
+            f"{peak_gib:.2f} GiB; steps saved {saved}, {ckpt_bytes} bytes a checkpoint, "
+            f"restores to the trained model's output {same_output} ({card})")
+        log("fastspeech2: loss per step " + " ".join(f"{v:.3f}" for v in curve))
+        log("fastspeech2: the recipe's ms per step (host clock, each step ending in the "
+            "metrics' read-back, the collate in the prefetch thread): "
+            + " ".join(f"{v:.1f}" for v in window_ms)
+            + f"; median {statistics.median(window_ms):.1f} ({card})")
+        log(f"fastspeech2: generate {generate_s:.1f} s (two runs, each building and loading "
+            f"the model): English {mels['english'].shape}, pinyin {mels['pinyin'].shape} "
+            "(mel_len x n_mels; not judged after "
+            f"{FS2_STEPS} steps)")
+        log(f"fastspeech2: kernel launches over gen, preprocess, train and generate "
+            f"{launches} (the path has no TPU kernel: the JAX model is XLA code, its mels "
+            "host NumPy)")
+        if (out["steps"] != FS2_STEPS or len(curve) != FS2_STEPS
+                or not np.isfinite(curve).all()):
+            raise AssertionError(f"fastspeech2: {out['steps']} steps, losses {curve}")
+        if not np.mean(curve[-5:]) < np.mean(curve[:5]):
+            raise AssertionError(f"fastspeech2: the loss did not fall: {curve}")
+        if n_params != FS2_PARAMS or saved != [FS2_STEPS] or not same_output or moved == 0:
+            raise AssertionError(f"fastspeech2: {n_params} params, steps saved {saved}, "
+                                 f"restored {same_output}, {moved} tensors moved")
+        for name, mel in mels.items():
+            if mel.ndim != 2 or mel.shape[0] > FS2_FRAMES or mel.shape[1] != 80 or not (
+                    np.isfinite(mel).all()):
+                raise AssertionError(f"fastspeech2: generate {name}: {mel.shape}")
+        if any(launches.values()):
+            raise AssertionError(f"fastspeech2: a kernel launched on the TTS path: {launches}")
+
+        it = fs2_train.batches(cfg)
+        collate = []
+        for _ in range(FS2_HOST_BATCHES):
+            t = time.perf_counter()
+            _, batch = next(it)
+            collate.append(1e3 * (time.perf_counter() - t))
+        log(f"fastspeech2: the host's collate ms per batch of {FS2_BATCH} (apart from the "
+            "card): " + " ".join(f"{v:.1f}" for v in collate))
+        latency = {"one": fs2_infer_ms(fs2, batch["phonemes"][:1], batch["src_lens"][:1]),
+                   "batch": fs2_infer_ms(fs2, batch["phonemes"][:16], batch["src_lens"][:16])}
+        log(f"fastspeech2: infer latency (host clock from the phonemes' copy to the card to the "
+            f"read-back of mel_len, 1000 frames): one sentence {latency['one']:.2f} ms, a batch "
+            f"of 16 {latency['batch']:.2f} ms ({card})")
+        del fs2, net, out
+        torch.cuda.empty_cache()
+        fs2, net = fs2_train.build_model(cfg, "cuda")
+        net.train()
+        fs2.set_dropout_generator(torch.Generator(device="cuda").manual_seed(7))
+        timing = step_ms(fs2_train.make_step(cfg, net, fs2_train.make_optimizer(cfg, net)),
+                         fs2_batch_to(batch, "cuda"), FS2_TIMED_STEPS)
+        del fs2, net
+        torch.cuda.empty_cache()
+        flops = fs2_step_flops(cfg, batch)
+        bound = {"f32": 1e3 * flops / H100_F32_FLOP_PER_S,
+                 "tf32": 1e3 * flops / H100_TF32_FLOP_PER_S}
+        log(f"fastspeech2: ms per step at B={FS2_BATCH} on one batch (host clock, "
+            f"{FS2_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
+            f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f}; the step's "
+            f"products {flops:.4g} FLOP, {bound['f32']:.2f} ms at float32's peak "
+            f"({bound['f32'] / timing['tf32_off']['ms']:.3f} of the TF32-off step), "
+            f"{bound['tf32']:.2f} ms at TF32's ({card})")
+        check = fs2_card_against_cpu(fs2_train, cfg, {k: v[:2] for k, v in batch.items()})
+        torch.cuda.empty_cache()
+    return {"steps": FS2_STEPS, "params": n_params, "losses": curve, "window_ms": window_ms,
+            "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes, "gen_s": gen_s,
+            "preprocess_s": prep_s, "train_s": train_s, "generate_s": generate_s,
+            "mel_shapes": {k: list(v.shape) for k, v in mels.items()}, "collate_ms": collate,
+            "infer_ms": latency, "step_ms": timing, "step_flops": flops,
+            "step_bound_ms": bound, "launches": launches,
+            "card_against_cpu": check}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1926,6 +2213,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--profile-separation"]:
         profile_separation()
+        return 0
+    if sys.argv[1:] == ["--profile-tts"]:
+        profile_tts()
         return 0
     log("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
         "cudnn", torch.backends.cudnn.allow_tf32)
@@ -2284,6 +2574,12 @@ def main():
     sep_launches = {k: sum(s["launches"][k] for s in separation.values())
                     for k in ecapa_launches}
 
+    # 14. the FastSpeech2 recipe at full width: no TPU kernel on its path
+    tts = fastspeech2_phase(kernels, card)
+    log("fastspeech2: " + json.dumps({"card": card, **{
+        k: v for k, v in tts.items() if k not in ("losses", "window_ms")}}))
+    tts_launches = tts["launches"]
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -2303,6 +2599,7 @@ def main():
         "stream_shapes": [r for r in stream_results if r["m"] == STREAM_CHUNK and "ms" in r],
         "ecapa_tdnn_launches": ecapa_launches["int8_matmul"],
         "separation_launches": sep_launches["int8_matmul"],
+        "fastspeech2_launches": tts_launches["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2318,6 +2615,7 @@ def main():
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_fwd"],
         "separation_launches": sep_launches["ctc_dp_fwd"],
+        "fastspeech2_launches": tts_launches["ctc_dp_fwd"],
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2330,7 +2628,8 @@ def main():
         "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
         "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"],
-        "separation_launches": sep_launches["ctc_dp_bwd"], "card": card,
+        "separation_launches": sep_launches["ctc_dp_bwd"],
+        "fastspeech2_launches": tts_launches["ctc_dp_bwd"], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",
@@ -2341,6 +2640,7 @@ def main():
         "card": card, "shapes": logmel_results,
         "ecapa_tdnn_launches": ecapa_launches["fused_logmel"],
         "separation_launches": sep_launches["fused_logmel"],
+        "fastspeech2_launches": tts_launches["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

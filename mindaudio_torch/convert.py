@@ -27,7 +27,13 @@ wants it:
   PReLU's ``negative_slope`` ``()`` → ``weight (1,)``;
 - ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across;
 - with ``batch_stats``, a batch norm's ``mean``/``var`` → its
-  ``running_mean``/``running_var`` buffers.
+  ``running_mean``/``running_var`` buffers;
+- a leaf of any other name raises.
+
+FastSpeech2's ``enc_<i>``/``dec_<i>`` blocks keep their flax names in the
+port. The JAX FastSpeech2 recipe saves the parameters of
+``FastSpeech2WithLoss``, the model under the scope ``model``:
+:func:`unwrap_model_scope` takes the model's own tree out of such a tree.
 
 The AdamW moments have the parameters' tree, so :func:`convert_adamw_state`
 carries an optax state across by the same rules.
@@ -41,11 +47,12 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["module_name", "convert_params", "convert_adamw_state"]
+__all__ = ["module_name", "convert_params", "convert_adamw_state", "unwrap_model_scope"]
 
 _RENAME = {"Dense_0": "w_1", "Dense_1": "w_2", "Conv_0": "conv1", "Conv_1": "conv2",
            "PReLU_0": "prelu"}
 _KERNEL_LAYOUT = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_CARRIED = {"bias", "pos_bias_u", "pos_bias_v", "weight", "running_mean", "running_var"}
 
 
 def module_name(path):
@@ -134,9 +141,18 @@ def convert_params(params, batch_stats=None):
             arr = arr.reshape(-1)
         elif leaf_name == "negative_slope":
             arr, leaf_name = arr.reshape(1), "weight"
+        elif leaf_name not in _CARRIED:
+            raise ValueError(f"convert_params: no rule places the leaf {'/'.join(path)}")
         key = ".".join(filter(None, (module_name(mod), leaf_name)))
         state[key] = torch.from_numpy(np.array(arr, order="C"))
     return state
+
+
+def unwrap_model_scope(params):
+    """The tree under ``model`` when ``params`` has that key (a
+    ``FastSpeech2WithLoss`` tree, as the JAX recipe saves it), else
+    ``params``: the JAX recipe's ``generate`` reads both layouts so."""
+    return params["model"] if "model" in params else params
 
 
 def convert_adamw_state(opt_state):

@@ -1,6 +1,7 @@
 """Learning-rate schedules (port of ``mindaudio_tpu.scheduler.schedules``).
 
-The Conformer recipe's Noam warm-up and ECAPA-TDNN's cyclic triangle. A
+The Conformer recipe's Noam warm-up, FastSpeech2's exponential decay with a
+linear warm-up and ECAPA-TDNN's cyclic triangle. A
 schedule is a plain function of the step: a Python int gives a float tensor
 on the CPU, a device tensor gives a device tensor (no host round trip inside
 a train step).
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["asr_warmup_lr", "cyclic_triangular_lr"]
+__all__ = ["asr_warmup_lr", "exponential_decay_lr", "cyclic_triangular_lr"]
 
 
 def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
@@ -20,6 +21,26 @@ def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
     def schedule(step):
         s = (torch.as_tensor(step) + start_steps).clamp_min(1).to(torch.float32)
         return lr * warmup_steps**0.5 * torch.minimum(s**-0.5, s * warmup_steps**-1.5)
+
+    return schedule
+
+
+def exponential_decay_lr(lr, decay_rate, decay_steps, staircase=True, warmup_steps=0):
+    """``lr * decay_rate^(step / decay_steps)`` (the exponent floored when
+    ``staircase``), after a linear warm-up ``lr * step / warmup_steps`` over
+    the first ``warmup_steps`` steps when that is positive. FastSpeech2's
+    post-norm FFT stacks need the warm-up: at Adam 1e-3 from step 0 they fall
+    into an input-independent minimum (the JAX package's measurement)."""
+
+    def schedule(step):
+        s = torch.as_tensor(step).to(torch.float32)
+        p = s / decay_steps
+        if staircase:
+            p = torch.floor(p)
+        base = lr * decay_rate**p
+        if warmup_steps <= 0:
+            return base
+        return torch.where(s < warmup_steps, lr * s / warmup_steps, base)
 
     return schedule
 

@@ -12,9 +12,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mindaudio_tpu", "examples"}
-# the JAX recipes' top-level modules (``examples/*/*.py``), importable by name
-# once their directory is on sys.path
+# the JAX recipes' top-level modules (``examples/*/*.py``) and packages
+# (``examples/fastspeech2/text``), importable by name once their directory is
+# on sys.path
 FORBIDDEN |= {p.stem for p in (ROOT / "examples").glob("*/*.py")}
+FORBIDDEN |= {p.parent.name for p in (ROOT / "examples").glob("*/*/__init__.py")}
 PORT_FILES = sorted((ROOT / "mindaudio_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -55,8 +57,11 @@ def test_the_recipes_are_scanned():
     assert {f"mindaudio_torch/recipes/ecapa_tdnn/{m}.py" for m in (
         "dataset", "train_speaker_embeddings", "speaker_verification_cosine",
         "convergence_run")} <= recipes
+    assert {f"mindaudio_torch/recipes/fastspeech2/{m}.py" for m in (
+        "dataset", "preprocess", "train", "generate", "convergence_run", "synthetic",
+        "text/__init__", "text/cleaners", "text/numbers", "text/pinyin")} <= recipes
     assert {"train_speaker_embeddings", "speaker_verification_cosine",
-            "convergence_run"} <= FORBIDDEN
+            "convergence_run", "preprocess", "generate", "text"} <= FORBIDDEN
     assert {"dataset", "train", "predict", "eval", "examples"} <= FORBIDDEN
 
 
