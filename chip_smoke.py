@@ -9,7 +9,8 @@ Run from the root of the repository, with no arguments::
 with ``torch.profiler`` and prints the device's busy share and the kernels by
 device time; ``--profile-separation`` does the same for the Conv-TasNet and
 TasNet steps of phase 13, ``--profile-tts`` for the FastSpeech2 step of
-phase 14; none of them checks anything.)
+phase 14, ``--profile-vocoder`` for the WaveGrad step of phase 15 with
+cuDNN's TF32 off and on; none of them checks anything.)
 
 Phases, each of which fails the run (non-zero exit) when it does not hold:
 
@@ -190,7 +191,30 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    and on, the peak memory, the bytes of a checkpoint and ``infer``'s
    latency for one sentence and a batch of 16; then holds one float32 step
    at full width (B = 2, dropout off, TF32 off) on the card against the CPU
-   under the rule of 13.
+   under the rule of 13;
+15. the WaveGrad recipe (``mindaudio_torch/recipes/wavegrad``) as a user
+   runs it, at the full width of ``wavegrad.yaml`` (17,233,217 parameters,
+   128 mels, hop 300, float32): write 128 utterances in LJSpeech's layout
+   at 22.05 kHz (``fastspeech2.synthetic.gen``), ``preprocess.main()``
+   (magnitude mels on the host, dB mapped to [0, 1]), ``train.main()`` for
+   20 steps at B = 64 x 30-frame crops with a save at the last (warm-up 10
+   steps: the YAML's 1000 would hold the learning rate at 4e-6 or less),
+   the checkpoint read back by ``train.load_vocoder``, and
+   ``reverse.main(--fast)`` on one utterance's features. Every loss must be
+   finite (not judged further: each step's loss follows the one noise
+   level its batch draws), the parameters moved, the restored model must
+   give the trained model's output, the audio must have the mel's length
+   (the samples of a net trained 20 steps may run away: the protocol
+   judges quality), the sampler's last 20 steps on the card must agree
+   with the CPU's on the same draws within 1e-4, and none of the port's
+   kernels may launch. Prints the recipe's ms per step, the host's crops
+   apart, ms per step on one batch with cuDNN's TF32 off and on beside the
+   bound of the step's convolutions, the peak memory, the bytes of a
+   checkpoint, and ``reverse_diffusion``'s time and real-time factor for
+   30 frames at B = 1 over the 1000-step and the 6-step schedules and at
+   B = 16 over the 6-step one; then holds one float32 step at full width
+   (B = 4, TF32 off, the diffusion draws fixed in the batch) on the card
+   against the CPU under the rule of 13.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -252,6 +276,14 @@ FS2_WARMUP = 10  # the YAML's 1000 would hold the learning rate at 2e-5 or less
 FS2_TEXT = "Printing, in the only sense with which we are at present concerned, differs " \
            "from most if not from all the arts and crafts represented in the Exhibition."
 FS2_PINYIN = "zhong1 guo2 ren2 min2 yin2 hang2 fa1 xing2 de5 ren2 min2 bi4"
+# WaveGrad (recipes/wavegrad/wavegrad.yaml, full width): phase 15 writes 128
+# utterances in LJSpeech's layout (two batches of 64 an epoch) and trains 20
+# steps at B = 64 x 30 frames x hop 300 with a save at the last; one float32
+# step at B = 4 against the CPU; the samplers at B = 1 and 16 x 30 frames
+WG_UTTS, WG_BATCH, WG_FRAMES, WG_HOP, WG_SR = 128, 64, 30, 300, 22050
+WG_STEPS, WG_TIMED_STEPS, WG_HOST_BATCHES, WG_PARAMS = 20, 10, 3, 17_233_217
+WG_WARMUP = 10  # the YAML's 1000 would hold the learning rate at 4e-6 or less
+WG_CHECK_BATCH, WG_SAMPLE_BATCH = 4, 16
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -2195,6 +2227,303 @@ def fastspeech2_phase(launch_counters, card):
             "card_against_cpu": check}
 
 
+def wg_batch_to(batch, device):
+    """A WaveGrad numpy batch as float32 tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def wg_step_flops(model, batch):
+    """Operations of one WaveGrad train step on ``batch`` (2 per
+    multiply-add; the backward's two products make it 3x the forward's):
+    every convolution's ``2 x output elements x Cin x kernel``, counted by
+    hooks over one forward on the card."""
+    counts = []
+
+    def hook(mod, args, out):
+        counts.append(2 * out.numel() * mod.in_channels * mod.kernel_size[0])
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv1d)]
+    try:
+        with torch.no_grad():
+            model(batch["mel"], batch["audio"], torch.full((len(batch["mel"]),), 0.5,
+                                                           device=batch["mel"].device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * sum(counts)
+
+
+def wg_fixed_step(wg_train, cfg):
+    """The recipe's step (``train.make_step``) with the diffusion draws
+    taken from the batch (``noise``, ``scale``) instead of a generator, so
+    that the card and the CPU take the same step."""
+    from mindaudio_torch.train.state import make_train_step
+
+    def make(net, optimizer):
+        def objective(net, b):
+            s = b["scale"][:, None]
+            noisy = s * b["audio"] + torch.sqrt(1.0 - s ** 2) * b["noise"]
+            return net(b["mel"], noisy, b["scale"], b["noise"]), {}
+
+        return make_train_step(net, optimizer, grad_clip_norm=float(cfg.optim.grad_clip),
+                               loss_fn=objective)
+    return make
+
+
+def wg_card_against_cpu(wg_train, cfg, batch):
+    """Phase 15's float32 step at full width, B = 4 (:func:`card_against_cpu`,
+    one-ulp moves of the audio for the CPU's spread; the diffusion draws
+    fixed in the batch), at a learning rate of 0.01 with a warm-up of 4
+    steps (0.0075 at AdamW's count 3: against the recipe's 6e-7 there an
+    update would be a few float32 ulps of some parameters). The stated
+    tolerances: loss 1e-5 relative, each update 1e-4 of its leaf's largest,
+    the gradient norm 1e-4."""
+    cfg = copy.deepcopy(cfg)
+    cfg.optim.lr, cfg.optim.warmup_steps = 0.01, 4
+    return card_against_cpu(
+        f"wavegrad: one float32 step at full width, B={WG_CHECK_BATCH}",
+        lambda device: wg_train.build_model(cfg, device)[1],
+        lambda net: wg_train.make_optimizer(cfg, net), wg_fixed_step(wg_train, cfg), batch,
+        "audio", wg_batch_to, {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-4})
+
+
+def wg_sample_ms(model, mel, betas, runs):
+    """ms of ``reverse_diffusion`` on ``mel`` (host clock from the call to
+    the read-back of the audio), the least of ``runs`` after one warm-up
+    run of the 6-step schedule; and the last audio."""
+    from mindaudio_torch.models import wavegrad as wg_model
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wg_model.reverse_diffusion(model, mel, gen, betas=wg_model.fast_noise_schedule()).cpu()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        audio = wg_model.reverse_diffusion(model, mel, gen, betas=betas).cpu()
+        times.append(1e3 * (time.perf_counter() - t))
+    return min(times), audio
+
+
+def wg_sampler_against_cpu(model, mel, steps=20):
+    """The sampler on the card against the CPU, from the same weights and
+    the same draws (``reverse_diffusion(noise=...)``, seeded numpy), over
+    the last ``steps`` steps of the 1000-step schedule, where even an
+    untrained net's samples stay bounded: within 1e-4 of the CPU's
+    largest sample (TF32 off; each step feeds the next), and finite."""
+    from mindaudio_torch.models import wavegrad as wg_model
+
+    betas = wg_model.default_noise_schedule()[:steps]
+    mel = np.asarray(mel[:1], np.float32)
+    noise = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (steps + 1, 1, mel.shape[1] * WG_HOP)).astype(np.float32))
+    card = wg_model.reverse_diffusion(model, torch.from_numpy(mel).cuda(), betas=betas,
+                                      noise=noise).cpu()
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = wg_model.reverse_diffusion(cpu_model, torch.from_numpy(mel), betas=betas, noise=noise)
+    err = (card - cpu).abs().max().item()
+    tol = 1e-4 * cpu.abs().max().item()
+    log(f"wavegrad: the sampler's last {steps} steps on the card against the CPU (the same "
+        f"weights and draws, TF32 off): max |diff| {err:.3e}, tolerance {tol:.3e} (1e-4 of the "
+        f"largest sample {cpu.abs().max().item():.4f})")
+    if not torch.isfinite(card).all() or not err <= tol:
+        raise AssertionError(f"wavegrad: sampler on the card differs from the CPU: {err} > {tol}")
+    return {"steps": steps, "max_abs_err": err, "tolerance": tol}
+
+
+def profile_vocoder():
+    """``--profile-vocoder``: the WaveGrad recipe's train step at full width
+    on one seeded batch of B = 64 x 30 frames (cuDNN TF32 off), then the
+    same with TF32 on."""
+    from mindaudio_torch.recipes.wavegrad import train as wg_train
+
+    cfg, _, _ = wg_train.parse_args([])
+    rng = np.random.default_rng(0)
+    batch = wg_batch_to({"mel": rng.uniform(0, 1, (WG_BATCH, WG_FRAMES, 128)).astype(np.float32),
+                         "audio": rng.uniform(-0.5, 0.5, (WG_BATCH, WG_FRAMES * WG_HOP))
+                         .astype(np.float32)}, "cuda")
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        _, net = wg_train.build_model(cfg, "cuda")
+        net.train()
+        step = wg_train.make_step(cfg, net, wg_train.make_optimizer(cfg, net),
+                                  torch.Generator(device="cuda").manual_seed(3))
+        profile_steps(f"wavegrad (cuDNN TF32 {'on' if tf32 else 'off'})", step, batch,
+                      by_op=not tf32)
+        del net, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def wavegrad_phase(launch_counters, card):
+    """Phase 15: the WaveGrad recipe (``mindaudio_torch/recipes/wavegrad``)
+    as a user runs it, at the full width of ``wavegrad.yaml``, on a corpus
+    in LJSpeech's layout that ``fastspeech2.synthetic.gen`` writes into a
+    temporary directory: ``preprocess.main()``, ``train.main()`` with a save
+    at the last step, the checkpoint read back by ``train.load_vocoder`` to
+    the trained model's output, ``reverse.main()`` (6 steps) on one
+    utterance's features, the timings (steps with cuDNN's TF32 off and on,
+    the host's crops, both samplers), and one float32 step against the CPU.
+    ``launch_counters`` are the port's kernel wrappers: the path runs none
+    of them. Returns the summary."""
+    import tempfile
+
+    from mindaudio_torch.models import wavegrad as wg_model
+    from mindaudio_torch.recipes.fastspeech2 import synthetic
+    from mindaudio_torch.recipes.wavegrad import preprocess, reverse
+    from mindaudio_torch.recipes.wavegrad import train as wg_train
+    from mindaudio_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wg_") as root:
+        for counter in launch_counters:
+            counter.launches = 0
+        t = time.perf_counter()
+        lj, _ = synthetic.gen(root, n_utts=WG_UTTS)
+        gen_s = time.perf_counter() - t
+        feature_dir = f"{root}/wavegrad"
+        t = time.perf_counter()
+        entries = preprocess.main(["--data.ljspeech_dir", lj, "--data.feature_dir", feature_dir])
+        prep_s = time.perf_counter() - t
+        n_fr = [np.load(f"{feature_dir}/{e}.npy", allow_pickle=True).item()["mel"].shape[0]
+                for e in entries]
+        log(f"wavegrad: gen {WG_UTTS} utterances in LJSpeech's layout at 22.05 kHz "
+            f"{gen_s:.1f} s; preprocess (magnitude mels on the host, dB to [0, 1]) "
+            f"{prep_s:.1f} s: {len(entries)} utterances, {min(n_fr)}-{max(n_fr)} frames")
+        if len(entries) != WG_UTTS or min(n_fr) <= WG_FRAMES:
+            raise AssertionError(f"wavegrad: corpus of {len(entries)} utterances, "
+                                 f"{min(n_fr)}-{max(n_fr)} frames")
+
+        ckpt_dir = f"{root}/ckpt"
+        args = ["--data.feature_dir", feature_dir, "--train.ckpt_dir", ckpt_dir,
+                "--train.max_steps", str(WG_STEPS), "--train.log_every_steps", "1",
+                "--train.save_every_steps", str(WG_STEPS),
+                "--optim.warmup_steps", str(WG_WARMUP)]
+        cfg, _, _ = wg_train.parse_args(args)
+        d = cfg.data
+        if (int(d.batch_size), int(d.crop_frames), int(d.hop_length)) != (
+                WG_BATCH, WG_FRAMES, WG_HOP):
+            raise AssertionError(f"wavegrad: not the recipe's batch: {d}")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = wg_train.main(args)
+        train_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        wg, losses, window_ms = out["model"], out["losses"], out["window_ms"]
+        n_params = sum(p.numel() for p in wg.parameters())
+        saved = checkpoint.list_steps(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{saved[-1]}",
+                                                  checkpoint.STATE_FILE))
+        restored = wg_train.load_vocoder(ckpt_dir, "cuda", cfg)
+        init, _ = wg_train.build_model(cfg, "cuda")
+        moved = sum(not torch.equal(a, b) for a, b in zip(init.parameters(), wg.parameters()))
+        del init
+        _, batch = next(wg_train.crop_iterator(cfg, WG_BATCH, 1))
+        dev_batch = wg_batch_to(batch, "cuda")
+        probe = (dev_batch["mel"][:4], dev_batch["audio"][:4],
+                 torch.linspace(0.2, 0.9, 4, device="cuda"))
+        with torch.no_grad():
+            want, got = wg(*probe), restored(*probe)
+        same_output = all(torch.equal(a, b) for a, b in zip(restored.parameters(),
+                                                             wg.parameters())) and bool(
+            torch.allclose(got, want, rtol=0, atol=1e-6 * (1 + want.abs().max().item())))
+        del restored
+        np.save(f"{root}/mel.npy", np.load(f"{feature_dir}/{entries[0]}.npy",
+                                           allow_pickle=True).item()["mel"])
+        t = time.perf_counter()
+        vocoded = reverse.main(["--mel", f"{root}/mel.npy", "--output", f"{root}/out.wav",
+                                "--fast", "--train.ckpt_dir", ckpt_dir])
+        reverse_s = time.perf_counter() - t
+        curve = [losses[s]["loss"] for s in sorted(losses)]
+        log(f"wavegrad: train {out['steps']} steps {train_s:.1f} s at B={WG_BATCH} x "
+            f"{WG_FRAMES} frames x hop {WG_HOP}, full width ({n_params} params, {moved} of "
+            f"{len(list(wg.parameters()))} tensors moved); peak memory {peak_gib:.2f} GiB; "
+            f"steps saved {saved}, {ckpt_bytes} bytes a checkpoint, restores to the trained "
+            f"model's output {same_output} ({card})")
+        log("wavegrad: loss per step " + " ".join(f"{v:.4f}" for v in curve))
+        log("wavegrad: the recipe's ms per step (host clock, each step ending in the metrics' "
+            "read-back, the crops in the prefetch thread, cuDNN TF32 off): "
+            + " ".join(f"{v:.1f}" for v in window_ms)
+            + f"; median {statistics.median(window_ms):.1f} ({card})")
+        log(f"wavegrad: reverse.main --fast on {entries[0]} ({n_fr[0]} frames) {reverse_s:.1f} s "
+            f"(building and loading the model included): {vocoded.shape} samples, "
+            f"{np.isfinite(vocoded).mean():.4f} of them finite (an untrained net's samples "
+            "run away; the protocol judges quality)")
+        if (out["steps"] != WG_STEPS or len(curve) != WG_STEPS
+                or not np.isfinite(curve).all()):
+            raise AssertionError(f"wavegrad: {out['steps']} steps, losses {curve}")
+        if n_params != WG_PARAMS or saved != [WG_STEPS] or not same_output or moved == 0:
+            raise AssertionError(f"wavegrad: {n_params} params, steps saved {saved}, "
+                                 f"restored {same_output}, {moved} tensors moved")
+        if vocoded.shape != (n_fr[0] * WG_HOP,):
+            raise AssertionError(f"wavegrad: reverse gave {vocoded.shape}")
+        sampler_check = wg_sampler_against_cpu(wg, batch["mel"][:1])
+
+        it = wg_train.crop_iterator(cfg, WG_BATCH, WG_HOST_BATCHES)
+        collate = []
+        for _ in range(WG_HOST_BATCHES):
+            t = time.perf_counter()
+            next(it)
+            collate.append(1e3 * (time.perf_counter() - t))
+        log(f"wavegrad: the host's crop and collate ms per batch of {WG_BATCH} (apart from the "
+            "card, features read from disk): " + " ".join(f"{v:.1f}" for v in collate))
+
+        wg.eval()
+        audio_s = WG_FRAMES * WG_HOP / WG_SR
+        sampling = {}
+        for name, b, betas, runs in (
+                ("steps_1000_b1", 1, wg_model.default_noise_schedule(), 2),
+                ("steps_6_b1", 1, wg_model.fast_noise_schedule(), 5),
+                (f"steps_6_b{WG_SAMPLE_BATCH}", WG_SAMPLE_BATCH, wg_model.fast_noise_schedule(),
+                 3)):
+            ms, audio = wg_sample_ms(wg, dev_batch["mel"][:b], betas, runs)
+            if audio.shape != (b, WG_FRAMES * WG_HOP):
+                raise AssertionError(f"wavegrad: sampler {name} gave {tuple(audio.shape)}")
+            sampling[name] = {"ms": ms, "rtf": ms / 1e3 / (b * audio_s)}
+        log(f"wavegrad: sampling {WG_FRAMES} frames ({audio_s:.4f} s of audio an utterance; host "
+            "clock to the read-back, the least of a few runs, cuDNN TF32 off): "
+            + ", ".join(f"{k} {v['ms']:.1f} ms (real-time factor {v['rtf']:.4f})"
+                        for k, v in sampling.items()) + f" ({card})")
+        launches = {c.__name__: c.launches for c in launch_counters}
+        log(f"wavegrad: kernel launches over gen, preprocess, train, reverse and sampling "
+            f"{launches} (the path has no TPU kernel: the JAX model is XLA convolutions, its "
+            "mels host NumPy)")
+        if any(launches.values()):
+            raise AssertionError(f"wavegrad: a kernel launched on the vocoder path: {launches}")
+        del wg, out
+        torch.cuda.empty_cache()
+
+        _, net = wg_train.build_model(cfg, "cuda")
+        net.train()
+        timing = step_ms(wg_train.make_step(cfg, net, wg_train.make_optimizer(cfg, net),
+                                            torch.Generator(device="cuda").manual_seed(3)),
+                         dev_batch, WG_TIMED_STEPS)
+        flops = wg_step_flops(net.model, dev_batch)
+        del net
+        torch.cuda.empty_cache()
+        bound = {"f32": 1e3 * flops / H100_F32_FLOP_PER_S,
+                 "tf32": 1e3 * flops / H100_TF32_FLOP_PER_S}
+        log(f"wavegrad: ms per step at B={WG_BATCH} on one batch (host clock, "
+            f"{WG_TIMED_STEPS} steps ending in a read-back): cuDNN TF32 off "
+            f"{timing['tf32_off']['ms']:.2f}, on {timing['tf32_on']['ms']:.2f}; the step's "
+            f"convolutions {flops:.4g} FLOP, {bound['f32']:.2f} ms at float32's peak "
+            f"({bound['f32'] / timing['tf32_off']['ms']:.3f} of the TF32-off step), "
+            f"{bound['tf32']:.2f} ms at TF32's ({bound['tf32'] / timing['tf32_on']['ms']:.3f} "
+            f"of the TF32-on step) ({card})")
+        rng = np.random.default_rng(5)
+        check_batch = {k: v[:WG_CHECK_BATCH] for k, v in batch.items()}
+        check_batch["noise"] = rng.standard_normal(check_batch["audio"].shape).astype(np.float32)
+        check_batch["scale"] = rng.uniform(0.3, 0.95, WG_CHECK_BATCH).astype(np.float32)
+        check = wg_card_against_cpu(wg_train, cfg, check_batch)
+        torch.cuda.empty_cache()
+    return {"steps": WG_STEPS, "params": n_params, "losses": curve, "window_ms": window_ms,
+            "peak_gib": peak_gib, "checkpoint_bytes": ckpt_bytes, "gen_s": gen_s,
+            "preprocess_s": prep_s, "train_s": train_s, "reverse_s": reverse_s,
+            "collate_ms": collate, "sampling": sampling, "sampler_against_cpu": sampler_check,
+            "step_ms": timing,
+            "step_flops": flops, "step_bound_ms": bound, "launches": launches,
+            "card_against_cpu": check}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2216,6 +2545,9 @@ def main():
         return 0
     if sys.argv[1:] == ["--profile-tts"]:
         profile_tts()
+        return 0
+    if sys.argv[1:] == ["--profile-vocoder"]:
+        profile_vocoder()
         return 0
     log("tf32: matmul", torch.backends.cuda.matmul.allow_tf32,
         "cudnn", torch.backends.cudnn.allow_tf32)
@@ -2580,6 +2912,12 @@ def main():
         k: v for k, v in tts.items() if k not in ("losses", "window_ms")}}))
     tts_launches = tts["launches"]
 
+    # 15. the WaveGrad recipe at full width: no TPU kernel on its path
+    vocoder = wavegrad_phase(kernels, card)
+    log("wavegrad: " + json.dumps({"card": card, **{
+        k: v for k, v in vocoder.items() if k not in ("losses", "window_ms")}}))
+    wg_launches = vocoder["launches"]
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -2600,6 +2938,7 @@ def main():
         "ecapa_tdnn_launches": ecapa_launches["int8_matmul"],
         "separation_launches": sep_launches["int8_matmul"],
         "fastspeech2_launches": tts_launches["int8_matmul"],
+        "wavegrad_launches": wg_launches["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2616,6 +2955,7 @@ def main():
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_fwd"],
         "separation_launches": sep_launches["ctc_dp_fwd"],
         "fastspeech2_launches": tts_launches["ctc_dp_fwd"],
+        "wavegrad_launches": wg_launches["ctc_dp_fwd"],
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2629,7 +2969,8 @@ def main():
         "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"],
         "separation_launches": sep_launches["ctc_dp_bwd"],
-        "fastspeech2_launches": tts_launches["ctc_dp_bwd"], "card": card,
+        "fastspeech2_launches": tts_launches["ctc_dp_bwd"],
+        "wavegrad_launches": wg_launches["ctc_dp_bwd"], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",
@@ -2641,6 +2982,7 @@ def main():
         "ecapa_tdnn_launches": ecapa_launches["fused_logmel"],
         "separation_launches": sep_launches["fused_logmel"],
         "fastspeech2_launches": tts_launches["fused_logmel"],
+        "wavegrad_launches": wg_launches["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,14 +25,16 @@ checkpoints apart (``<corpus_dir>/ckpt_seed<n>``). A run writes
 utterance's free-running and ground-truth mels) into ``--out`` (default: the
 corpus directory; name ``convergence_artifacts/`` beside this file only to
 update the committed results), with ``_seed<n>`` before the extension for a
-seed other than 0. The WaveGrad end-to-end leg (``--wavegrad_ckpt``) waits
-for the WaveGrad port and raises ``NotImplementedError``.
+seed other than 0. With ``--wavegrad_ckpt`` the scoring ends in the
+end-to-end leg (:func:`vocode_e2e`): the first held-out utterance's
+predicted mel vocoded by that WaveGrad checkpoint, its ``e2e`` result in
+``results.json`` and its audio in ``e2e_sample.wav``.
 
 Usage::
 
     python -m mindaudio_torch.recipes.fastspeech2.convergence_run [--steps 4000] \\
         [--utts 2048] [--init-seed 0] [--device cuda] [--corpus_dir DIR] [--out DIR] \\
-        [--gen-only]
+        [--wavegrad_ckpt DIR] [--gen-only]
 """
 
 from __future__ import annotations
@@ -49,8 +51,10 @@ import torch
 from scipy.fftpack import dct
 
 from ...data import io, spectrum
+from ...models.wavegrad import fast_noise_schedule, reverse_diffusion
 from ...train.checkpoint import restore_checkpoint
 from ...train.log import get_logger
+from ..wavegrad.train import load_vocoder
 from . import train as fs2_train
 
 SR = 24000
@@ -267,12 +271,13 @@ def _suffix(seed):
     return "" if seed == 0 else f"_seed{seed}"
 
 
-def evaluate(cfg, params, dev_names, feature_dir, out_dir, device, seed=0):
+def evaluate(cfg, params, dev_names, feature_dir, out_dir, device, seed=0, wavegrad_ckpt=""):
     """Score ``params`` (a checkpoint's, either layout) on the held-out
     utterances ``dev_names`` at B = 1: free-running through ``infer`` and
     teacher-forced (the ground-truth durations, pitch and energy). Writes
-    the first utterance's mels into ``out_dir``; returns the metrics,
-    rounded as the JAX script rounds them."""
+    the first utterance's mels into ``out_dir``; with ``wavegrad_ckpt``
+    vocodes its predicted mel (:func:`vocode_e2e`, under ``e2e``). Returns
+    the metrics, rounded as the JAX script rounds them."""
     fs2, _ = fs2_train.build_model(cfg, device)
     fs2 = fs2_train.load_params(fs2, params).eval()
     max_ph = int(cfg.data.max_phoneme_len)
@@ -354,7 +359,34 @@ def evaluate(cfg, params, dev_names, feature_dir, out_dir, device, seed=0):
     os.makedirs(out_dir, exist_ok=True)
     np.save(os.path.join(out_dir, f"mel_pred{_suffix(seed)}.npy"), sample[0])
     np.save(os.path.join(out_dir, f"mel_gt{_suffix(seed)}.npy"), sample[1])
+    if wavegrad_ckpt:
+        results["e2e"] = vocode_e2e(sample[0], wavegrad_ckpt, out_dir, device)
     return results
+
+
+def vocode_e2e(fs2_mel, wavegrad_ckpt, out_dir, device):
+    """FastSpeech2 mel ``(T, N_MELS)`` (``ln`` power) → the WaveGrad
+    checkpoint's audio by the 6-step sampler (draws seeded 0 on ``device``)
+    → the re-analyzed mel's L1 distance to ``fs2_mel``, beside that of 0.1
+    white noise (``default_rng(0)``). Writes ``e2e_sample.wav`` into
+    ``out_dir``."""
+    wg = load_vocoder(wavegrad_ckpt, device)
+    mel_db = fs2_mel_to_wavegrad(fs2_mel)
+    audio = reverse_diffusion(wg, torch.as_tensor(mel_db[None], device=device),
+                              torch.Generator(device=device).manual_seed(0), hop=HOP,
+                              betas=fast_noise_schedule())[0].cpu().numpy()
+    io.write(os.path.join(out_dir, "e2e_sample.wav"), audio, SR)
+
+    def analyze(wav):
+        m = spectrum.melspectrogram(
+            wav[: len(fs2_mel) * HOP], n_fft=N_FFT, hop_length=HOP, win_length=N_FFT,
+            n_mels=N_MELS, sample_rate=SR, norm="slaney", mel_type="slaney")
+        return np.log(np.maximum(m, 1e-5)).T[: len(fs2_mel)]
+
+    mel_rt = analyze(audio)
+    noise = np.random.default_rng(0).standard_normal(len(fs2_mel) * HOP).astype(np.float32) * 0.1
+    return {"mel_l1_roundtrip": round(float(np.abs(mel_rt - fs2_mel).mean()), 4),
+            "mel_l1_noise_baseline": round(float(np.abs(analyze(noise) - fs2_mel).mean()), 4)}
 
 
 def overrides(feature_dir, ckpt_dir, steps, batch, lr):
@@ -415,7 +447,7 @@ def parse_args(argv=None):
     ap.add_argument("--corpus_dir", default="", help="corpus directory (a temporary one if unset)")
     ap.add_argument("--out", default="", help="results directory (default: the corpus's)")
     ap.add_argument("--wavegrad_ckpt", default="",
-                    help="trained WaveGrad checkpoint for the end-to-end leg (not ported yet)")
+                    help="trained WaveGrad checkpoint directory for the end-to-end leg")
     ap.add_argument("--write_wavs", action="store_true",
                     help="also write corpus wavs (to train a WaveGrad on)")
     ap.add_argument("--gen-only", action="store_true", help="write the corpus and stop")
@@ -430,9 +462,6 @@ def main(argv=None):
     """Run the protocol; returns the results (None for ``--gen-only`` and
     ``--prep_wavegrad``)."""
     args = parse_args(argv)
-    if args.wavegrad_ckpt:
-        raise NotImplementedError("the WaveGrad vocoder is not ported to PyTorch yet "
-                                  "(ROADMAP queue 1 item 7.2)")
     feature_dir = args.corpus_dir or tempfile.mkdtemp(prefix="fs2_convergence_")
     out_dir = args.out or feature_dir
     if args.prep_wavegrad:
@@ -461,7 +490,7 @@ def main(argv=None):
 
     cfg, device, _ = fs2_train.parse_args(argv_train)
     results = evaluate(cfg, restore_checkpoint(ckpt_dir)["params"], dev_names, feature_dir,
-                       out_dir, device, seed=args.init_seed)
+                       out_dir, device, seed=args.init_seed, wavegrad_ckpt=args.wavegrad_ckpt)
     results["config"] = {"steps": args.steps, "utts": args.utts, "batch": args.batch,
                          "n_phones": N_PHONES, "init_seed": args.init_seed,
                          "cudnn_tf32": torch.backends.cudnn.allow_tf32,

@@ -1,7 +1,9 @@
 """Learning-rate schedules (port of ``mindaudio_tpu.scheduler.schedules``).
 
-The Conformer recipe's Noam warm-up, FastSpeech2's exponential decay with a
-linear warm-up and ECAPA-TDNN's cyclic triangle. A
+The Conformer recipe's Noam warm-up, the warm-up with a polynomial or a
+cosine decay, the step decay, FastSpeech2's exponential decay with a linear
+warm-up, ECAPA-TDNN's cyclic triangle and WaveGrad's linear warm-up
+(``optax.linear_schedule``). A
 schedule is a plain function of the step: a Python int gives a float tensor
 on the CPU, a device tensor gives a device tensor (no host round trip inside
 a train step).
@@ -9,9 +11,12 @@ a train step).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["asr_warmup_lr", "exponential_decay_lr", "cyclic_triangular_lr"]
+__all__ = ["asr_warmup_lr", "warmup_poly_lr", "cosine_lr", "step_lr", "exponential_decay_lr",
+           "cyclic_triangular_lr", "linear_schedule"]
 
 
 def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
@@ -21,6 +26,46 @@ def asr_warmup_lr(lr, warmup_steps=25000, start_steps=0):
     def schedule(step):
         s = (torch.as_tensor(step) + start_steps).clamp_min(1).to(torch.float32)
         return lr * warmup_steps**0.5 * torch.minimum(s**-0.5, s * warmup_steps**-1.5)
+
+    return schedule
+
+
+def warmup_poly_lr(lr, min_lr, warmup_steps, total_steps, power=1.0, start_steps=0):
+    """A linear warm-up ``lr * step / warmup_steps``, then a polynomial
+    decay of power ``power`` from ``lr`` to ``min_lr`` at ``total_steps``."""
+
+    def schedule(step):
+        s = (torch.as_tensor(step) + start_steps).to(torch.float32)
+        warm = lr * s / max(warmup_steps, 1)
+        frac = torch.clamp((s - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        decay = (lr - min_lr) * (1.0 - frac) ** power + min_lr
+        return torch.where(s < warmup_steps, warm, decay)
+
+    return schedule
+
+
+def cosine_lr(lr, min_lr, warmup_steps, total_steps, start_steps=0):
+    """A linear warm-up, then a cosine decay from ``lr`` to ``min_lr`` at
+    ``total_steps``."""
+
+    def schedule(step):
+        s = (torch.as_tensor(step) + start_steps).to(torch.float32)
+        warm = lr * s / max(warmup_steps, 1)
+        frac = torch.clamp((s - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        decay = min_lr + 0.5 * (lr - min_lr) * (1.0 + torch.cos(math.pi * frac))
+        return torch.where(s < warmup_steps, warm, decay)
+
+    return schedule
+
+
+def step_lr(lr, epoch_size, factor=0.5, interval=2):
+    """``lr * factor^(epoch // interval)`` with ``epoch = step //
+    epoch_size``."""
+
+    def schedule(step):
+        epoch = torch.div(torch.as_tensor(step), epoch_size, rounding_mode="floor")
+        exponent = torch.div(epoch, interval, rounding_mode="floor").to(torch.float32)
+        return lr * factor ** exponent
 
     return schedule
 
@@ -54,5 +99,23 @@ def cyclic_triangular_lr(min_lr, max_lr, step_size):
         cycle = torch.floor(1 + step / (2 * step_size))
         x = torch.abs(step / step_size - 2 * cycle + 1)
         return min_lr + (max_lr - min_lr) * torch.clamp_min(1.0 - x, 0.0)
+
+    return schedule
+
+
+def linear_schedule(init_value, end_value, transition_steps):
+    """``optax.linear_schedule``: from ``init_value`` to ``end_value`` over
+    ``transition_steps`` steps, then constant; as in optax, ``(init - end) *
+    (1 - step / transition_steps) + end`` with the step clamped into
+    ``[0, transition_steps]``, and ``init_value`` throughout when
+    ``transition_steps <= 0``. WaveGrad's warm-up is ``linear_schedule(0, lr,
+    warmup_steps)``: its FiLM-modulated UBlock stack is sharp at init."""
+
+    def schedule(step):
+        s = torch.as_tensor(step).to(torch.float32)
+        if transition_steps <= 0:
+            return torch.full_like(s, init_value)
+        frac = 1.0 - torch.clamp(s, 0.0, transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
 
     return schedule

@@ -25,10 +25,13 @@ from ``sys.modules`` (and the directory from ``sys.path``) afterwards.
 - ``train.main()``, ``generate.main()`` (English and ``--pinyin``, both
   checkpoint layouts) and ``convergence_run.main()`` end to end on
   ``--device cpu``, each turning TF32 off (the recipe computes in float32,
-  as JAX's does); ``--wavegrad_ckpt`` raises ``NotImplementedError``.
+  as JAX's does), and their ``--wavegrad_ckpt`` legs with a toy WaveGrad
+  (channels 8-32; ``generate``'s 1000-step schedule cut to its last 3
+  steps for CPU time).
 """
 
 import filecmp
+import functools
 import importlib
 import os
 import shutil
@@ -47,8 +50,10 @@ from mindaudio_tpu.data import textgrid as jtextgrid
 from mindaudio_tpu.train import config as jconfig
 from mindaudio_torch.convert import convert_params
 from mindaudio_torch.data import features as tfeatures
+from mindaudio_torch.data import io as tio
 from mindaudio_torch.data import spectrum as tspectrum
 from mindaudio_torch.data import textgrid as ttextgrid
+from mindaudio_torch.models import wavegrad as twg
 from mindaudio_torch.recipes.fastspeech2 import convergence_run as tconv
 from mindaudio_torch.recipes.fastspeech2 import dataset as tdataset
 from mindaudio_torch.recipes.fastspeech2 import generate as tgenerate
@@ -495,8 +500,28 @@ def test_train_generate_end_to_end(ljspeech, tmp_path, capsys, monkeypatch):
                              str(tmp_path / "zh.npy")] + argv)
     assert np.isfinite(mel_zh).all() and mel_zh.shape[1] == 80
     assert "-> " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="7.2"):
-        tgenerate.main(["--wavegrad_ckpt", ckpt_dir] + argv)
+    # the vocoder leg: a toy WaveGrad over these 80 bins at hop 300, the
+    # 1000-step schedule cut to its last 3 steps (CPU time)
+    vocoder = _toy_vocoder(str(tmp_path / "wg"), 80)
+    monkeypatch.setattr(tgenerate, "reverse_diffusion", functools.partial(
+        twg.reverse_diffusion, betas=twg.default_noise_schedule()[:3]))
+    mel = tgenerate.main(["--text", "Dr. Smith paid 42 dollars.", "--output",
+                          str(tmp_path / "voc.npy"), "--wavegrad_ckpt", vocoder] + argv
+                         + ["--data.hop_length", "300"])
+    audio, sr = tio.read(str(tmp_path / "voc.wav"))
+    assert sr == 22050 and len(audio) == mel.shape[0] * 300 and np.isfinite(audio).all()
+
+
+def _toy_vocoder(directory, n_mels):
+    """A WaveGrad checkpoint at channels 8-32 (hop 300), its weights halved
+    so that an untrained net's samples stay finite."""
+    wg = twg.WaveGrad(n_mels=n_mels, device="cpu", down_channels=(8, 8, 16, 32),
+                      film_channels=(8, 8, 16, 32, 32), up_channels=(32, 32, 16, 8, 8))
+    wg.reset_parameters(torch.Generator().manual_seed(0))
+    params = {f"model.{k}": v.detach() * (0.5 if v.dim() == 3 else 1.0)
+              for k, v in wg.named_parameters()}
+    tckpt.save_checkpoint(directory, {"params": params}, 1)
+    return directory
 
 
 def test_convergence_run_end_to_end(corpus, tmp_path, monkeypatch):
@@ -513,8 +538,16 @@ def test_convergence_run_end_to_end(corpus, tmp_path, monkeypatch):
     assert sorted(os.listdir(out)) == ["loss_curve_seed2.json", "mel_gt_seed2.npy",
                                        "mel_pred_seed2.npy", "results_seed2.json"]
     assert tckpt.list_steps(os.path.join(root, "ckpt_seed2")) == [1, 2, 3]  # every quarter
-    with pytest.raises(NotImplementedError, match="7.2"):
-        tconv.main(["--wavegrad_ckpt", "x", "--corpus_dir", root])
+    # the end-to-end leg on the trained checkpoint, with a toy vocoder over
+    # the corpus's 128 bins
+    vocoder = _toy_vocoder(str(tmp_path / "wg"), 128)
+    again = tconv.main(["--steps", "3", "--batch", "4", "--device", "cpu", "--corpus_dir", root,
+                        "--out", out, "--init-seed", "2", "--skip_train", "--wavegrad_ckpt",
+                        vocoder])
+    assert set(again["e2e"]) == {"mel_l1_roundtrip", "mel_l1_noise_baseline"}
+    assert np.isfinite(again["e2e"]["mel_l1_roundtrip"])
+    assert {k: v for k, v in again.items() if k != "e2e"} == results
+    assert "e2e_sample.wav" in os.listdir(out)
 
 
 def test_entry_points_need_a_card_unless_asked():

@@ -60,6 +60,9 @@ def test_the_recipes_are_scanned():
     assert {f"mindaudio_torch/recipes/fastspeech2/{m}.py" for m in (
         "dataset", "preprocess", "train", "generate", "convergence_run", "synthetic",
         "text/__init__", "text/cleaners", "text/numbers", "text/pinyin")} <= recipes
+    assert {f"mindaudio_torch/recipes/wavegrad/{m}.py" for m in (
+        "preprocess", "train", "reverse", "convergence_run")} <= recipes
+    assert "reverse" in FORBIDDEN
     assert {"train_speaker_embeddings", "speaker_verification_cosine",
             "convergence_run", "preprocess", "generate", "text"} <= FORBIDDEN
     assert {"dataset", "train", "predict", "eval", "examples"} <= FORBIDDEN
