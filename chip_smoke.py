@@ -214,7 +214,29 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    30 frames at B = 1 over the 1000-step and the 6-step schedules and at
    B = 16 over the 6-step one; then holds one float32 step at full width
    (B = 4, TF32 off, the diffusion draws fixed in the batch) on the card
-   against the CPU under the rule of 13.
+   against the CPU under the rule of 13;
+16. the Conformer recipe trained W8A8 with rematerialized encoder blocks
+   (``--model.int8_ffn true --model.remat true``) as a user runs it, at the
+   full width and depth of ``conformer.yaml`` on phase 9's cipher corpus
+   (B = 64 x 227 frames, bf16 autocast): ``train.main()`` for 30 steps with
+   a save, ``predict.main()`` with ``ctc_greedy``, the checkpoint loaded
+   into the float model unchanged. Every logged loss must be finite and the
+   last five's mean below the first five's; the CTC kernels must launch
+   once forward and once backward a step (and once forward a dev batch),
+   the int8 GEMM and the log-mel never; the W8A8 products (``torch._int_mm``)
+   once forward per W8A8 layer a step, the 48 encoder layers' twice (the
+   recomputation), two backward products per layer. Then ms a step and the
+   peak memory on one batch for int8_ffn off/on x remat off/on (remat must
+   lower the peak); remat on against off on the card with dropout on and
+   the same seeds, for the flagship's float32 step and a full-width encoder
+   with the conv module's batch norm (updates, gradients and running
+   statistics within 4x the spread of two remat-off runs); one float32
+   remat step (B = 8, dropout off) against the CPU under the rule of 13;
+   the W8A8 product at the path's shapes against float64 (exact on the
+   int32 accumulators), timed beside ``torch.matmul`` in bf16 and its own
+   quantization passes; and ``resample``, ``istft``, ``mfcc`` and
+   ``sliding_window_cmn`` on the card against the CPU's float64 at the
+   stated tolerances, then with TF32 (reported).
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -238,6 +260,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores, at 700 W
 H100_TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
 H100_F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+H100_INT8_OP_PER_S = 1979e12  # dense int8 tensor cores
 
 VOCAB, N_MELS, D_MODEL, HEADS, FFN = 4233, 80, 256, 4, 2048
 ENC_LAYERS, DEC_LAYERS, CONV_KERNEL = 12, 6, 15
@@ -284,6 +307,10 @@ WG_UTTS, WG_BATCH, WG_FRAMES, WG_HOP, WG_SR = 128, 64, 30, 300, 22050
 WG_STEPS, WG_TIMED_STEPS, WG_HOST_BATCHES, WG_PARAMS = 20, 10, 3, 17_233_217
 WG_WARMUP = 10  # the YAML's 1000 would hold the learning rate at 4e-6 or less
 WG_CHECK_BATCH, WG_SAMPLE_BATCH = 4, 16
+# W8A8 training with rematerialized blocks (phase 16): the recipe's steps on
+# phase 9's corpus (one save at the last), and the steps timed on one batch
+# for each of the four int8_ffn x remat settings
+I8_STEPS, I8_TIMED_STEPS = 30, 10
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -320,22 +347,31 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms_by_name(fn, iters=10):
+def kernel_ms_by_name(fn, iters=10, attempts=3):
     """Device time per call of ``fn`` in ms for each CUDA kernel it launches,
-    by name: ``torch.profiler`` over ``iters`` eager calls after one warm-up."""
+    by name: ``torch.profiler`` over ``iters`` eager calls after one warm-up.
+    ``fn`` launches at least one kernel, so a capture that holds no device
+    event at all is the profiler's failure, not ``fn``'s (CUPTI now and then
+    hands back an empty trace): it is logged and the capture is made again,
+    up to ``attempts`` times in all, and an error if every one is empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = collections.defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] += e.device_time / 1e3 / iters
-    return out
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = collections.defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.name] += e.device_time / 1e3 / iters
+        if out:
+            return out
+        log(f"profiler: capture {attempt} of {attempts} holds no device event; "
+            + ("capturing again" if attempt < attempts else "giving up"))
+    raise AssertionError(f"the profiler captured no device event in {attempts} attempts")
 
 
 def device_ms(fn, iters=10):
@@ -2524,6 +2560,449 @@ def wavegrad_phase(launch_counters, card):
             "card_against_cpu": check}
 
 
+def i8_recipe_args(root, steps, *flags):
+    """Phase 9's flags (the convergence run's, 64 utterances in the
+    227-frame bucket) with ``flags`` appended."""
+    from mindaudio_torch.recipes.conformer import convergence_run
+
+    return convergence_run._args(root, steps) + ["--data.batch_factor", "0.67"] + list(flags)
+
+
+def i8_fixed_batch(cfg, device, n=None):
+    """The first training batch of the recipe's iterator (no speed
+    perturbation), as tensors on ``device``; the first ``n`` utterances."""
+    from mindaudio_torch.recipes.conformer import dataset
+    from mindaudio_torch.recipes.conformer import train as rtrain
+
+    tok = rtrain.build_tokenizer(cfg)
+    _, _, batch = next(dataset.batch_iterator(
+        cfg.data.train_csv, tok, epochs=1, speed_perturb=False,
+        batch_factor=float(cfg.data.batch_factor), max_label_len=int(cfg.data.max_label_len)))
+    batch = {k: v[:n] for k, v in batch.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).long() if v.dtype == np.int32
+            else torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}, tok
+
+
+def i8_setting_ms(root, int8_ffn, remat, n=I8_TIMED_STEPS):
+    """The recipe's step (bf16 autocast, dither, dropout) on one fixed batch
+    of 64 x 227 frames at full width with ``model.int8_ffn`` and
+    ``model.remat`` as given: ms a step (host clock, ``n`` steps after two
+    warm-up steps, ending in the loss's read-back), the peak memory over
+    those steps and the int8 products a step."""
+    from mindaudio_torch.ops import quant
+    from mindaudio_torch.recipes.conformer import train as rtrain
+
+    cfg, device = rtrain.parse_args(i8_recipe_args(
+        root, 0, "--model.int8_ffn", str(int8_ffn).lower(), "--model.remat", str(remat).lower()))
+    batch, tok = i8_fixed_batch(cfg, "cpu")
+    batch = {k: v.to(device) for k, v in batch.items()}
+    model = rtrain.build_model(cfg, tok.vocab_size, device).train()
+    gens = {k: torch.Generator(device=device).manual_seed(s) for k, s in
+            (("dropout", rtrain.DROPOUT_SEED), ("features", rtrain.FEATURES_SEED))}
+    model.set_dropout_generator(gens["dropout"])
+    step, _ = rtrain.make_step(cfg, model, rtrain.make_optimizer(cfg, model), gens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(batch)
+    float(step(batch)["loss"])
+    quant.int8_mm.launches = 0
+    t = time.perf_counter()
+    for _ in range(n):
+        metrics = step(batch)
+    loss = float(metrics["loss"])
+    ms = 1e3 * (time.perf_counter() - t) / n
+    out = {"int8_ffn": int8_ffn, "remat": remat, "ms": ms, "loss": loss,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "int8_mm_per_step": quant.int8_mm.launches / n, "batch": list(batch["wavs"].shape)}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def i8_float32_step(root, remat, dropout):
+    """``(build, make_optimizer, make_step, batch, cfg)`` of the recipe's step
+    in float32 (no autocast) at full width on the first 8 utterances of the
+    fixed batch, the wavs as float32, dither and SpecAugment off, with
+    ``model.remat`` and ``model.dropout_rate`` as given."""
+    from mindaudio_torch.recipes.conformer import train as rtrain
+
+    cfg, _ = rtrain.parse_args(i8_recipe_args(
+        root, 0, "--model.remat", str(remat).lower(), "--model.dropout_rate", str(dropout),
+        "--optim.bf16", "false", "--features.dither", "0.0"))
+    batch, tok = i8_fixed_batch(cfg, "cpu", n=8)
+    batch = {k: v.numpy() for k, v in batch.items()}
+    batch["wavs"] = (batch["wavs"] / 32768.0).astype(np.float32)  # kaldi_fbank scales it back
+
+    def build(device):
+        return rtrain.build_model(cfg, tok.vocab_size, torch.device(device))
+
+    def make_step(model, opt):
+        device = next(model.parameters()).device
+        gens = {k: torch.Generator(device=device).manual_seed(s) for k, s in
+                (("dropout", rtrain.DROPOUT_SEED), ("features", rtrain.FEATURES_SEED))}
+        model.set_dropout_generator(gens["dropout"])
+        return rtrain.make_step(cfg, model, opt, gens)[0]
+
+    return build, lambda model: rtrain.make_optimizer(cfg, model), make_step, batch, cfg
+
+
+def i8_batch_to(batch, device):
+    return {k: torch.from_numpy(v).to(device).long() if v.dtype.kind == "i"
+            else torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def leaf_errors(a, b):
+    """Per leaf ``max |a - b| / max |b|``."""
+    return np.array([((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+                     for x, y in zip(a, b)])
+
+
+def remat_pairs(root):
+    """Remat on against remat off on the card, dropout on, the same
+    generator seeds: (a) the flagship's float32 loss and gradients on the
+    recipe's features (B = 8, dither and SpecAugment off) and the dropout
+    generator's state after the backward, (b) a full-width
+    ``ConformerEncoder`` with the conv module's batch norm: the gradients of
+    ``sum(out^2)`` and the running statistics after one step. The step's
+    own spread is measured on the card: a second remat-off run, and one
+    with every input sample moved one float32 ulp; each leaf's limit is 4x
+    the larger of the two, or 1e-6 of the leaf's largest value where that
+    is smaller. A recomputation with other dropout masks, or one that moved
+    the statistics again, misses it by orders."""
+    from mindaudio_torch.models.conformer import ConformerEncoder
+    from mindaudio_torch.models.layers import FastDropout, running_stats
+    from mindaudio_torch.recipes.conformer import train as rtrain
+
+    build, _, _, batch, cfg = i8_float32_step(root, True, 0.1)
+    base = build("cuda")
+    wavs = batch["wavs"]
+    ulp = np.spacing(np.abs(wavs)) * np.random.default_rng(6).choice([-1.0, 1.0], wavs.shape)
+    variants = (("off", False, wavs), ("off_again", False, wavs),
+                ("off_ulp", False, (wavs + ulp).astype(np.float32)), ("on", True, wavs))
+    runs = {}
+    for name, remat, x in variants:
+        model = copy.deepcopy(base).train()
+        model.encoder.remat = remat
+        gens = {k: torch.Generator(device="cuda").manual_seed(s) for k, s in
+                (("dropout", rtrain.DROPOUT_SEED), ("features", rtrain.FEATURES_SEED))}
+        model.set_dropout_generator(gens["dropout"])
+        b = i8_batch_to(dict(batch, wavs=x), "cuda")
+        feats, feat_lens = rtrain.device_features(cfg, b["wavs"], b["wav_lens"],
+                                                  gens["features"])
+        loss, _ = model(dict(b, feats=feats, feat_lens=feat_lens))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs[name] = {"loss": loss.item(), "gen": gens["dropout"].get_state(), "grads": grads}
+        del model
+    enc_base = ConformerEncoder(input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS, ffn_dim=FFN,
+                                num_layers=ENC_LAYERS, kernel_size=CONV_KERNEL,
+                                norm_type="batch_norm").cuda()
+    with torch.no_grad():
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for p in enc_base.parameters():
+            p.normal_(0.0, 0.05, generator=g)
+    feats = torch.randn(16, 227, N_MELS, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(4))
+    feats_ulp = feats + torch.from_numpy(
+        np.spacing(np.abs(feats.cpu().numpy())) * np.random.default_rng(7).choice(
+            [-1.0, 1.0], tuple(feats.shape))).float().cuda()
+    lens = torch.full((16,), 227, device="cuda")
+    enc_runs = {}
+    for name, remat, x in (("off", False, feats), ("off_again", False, feats),
+                           ("off_ulp", False, feats_ulp), ("on", True, feats)):
+        enc = copy.deepcopy(enc_base).train()
+        enc.remat = remat
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for m in enc.modules():
+            if isinstance(m, FastDropout):
+                m.generator = gen
+        out, _ = enc(x, lens)
+        grads = torch.autograd.grad(out.float().square().sum(), list(enc.parameters()))
+        enc_runs[name] = {"grads": grads, "stats": [t.clone() for t in running_stats(enc)]}
+        del enc
+    moved = leaf_errors(enc_runs["off"]["stats"], running_stats(enc_base)).min()
+
+    stat_names = [n for n, b in enc_base.named_buffers() if n.endswith(("running_mean",
+                                                                        "running_var"))]
+    checks = {"asr_grads": (runs, "grads", [n for n, _ in base.named_parameters()]),
+              "encoder_grads": (enc_runs, "grads", [n for n, _ in enc_base.named_parameters()]),
+              "encoder_stats": (enc_runs, "stats", stat_names)}
+    summary = {}
+    for key, (res, field, names) in checks.items():
+        off = res["off"][field]
+        spread = np.maximum(leaf_errors(res["off_again"][field], off),
+                            leaf_errors(res["off_ulp"][field], off))
+        err = leaf_errors(res["on"][field], off)
+        limit = np.maximum(4 * spread, 1e-6)
+        i = int(np.argmax(err / limit))
+        summary[key] = {"worst_ratio": float(err[i] / limit[i]), "worst": names[i],
+                        "error": float(err[i]), "spread": float(spread[i]),
+                        "largest_error": float(err.max()), "leaves": len(names),
+                        "exact_leaves": int((err == 0).sum())}
+    summary["loss"] = {k: r["loss"] for k, r in runs.items()}
+    summary["statistics_moved_by_at_least"] = float(moved)
+    log("int8/remat: remat on vs off on the card, dropout on, the same seeds (limit per leaf: "
+        "4x the step's spread, a second remat-off run and one-ulp input moves, at least 1e-6 "
+        "of the leaf's largest): "
+        + "; ".join(f"{k} worst error/limit {v['worst_ratio']:.3f} in {v['worst']} (error "
+                    f"{v['error']:.3e}, spread {v['spread']:.3e}), largest error "
+                    f"{v['largest_error']:.3e}, {v['exact_leaves']} of {v['leaves']} leaves "
+                    "bit-equal" for k, v in summary.items()
+                    if isinstance(v, dict) and "worst" in v)
+        + f"; losses {summary['loss']}; the statistics moved by at least {moved:.3e} of "
+          "their largest in one step")
+    if any(v["worst_ratio"] > 1 for v in summary.values() if isinstance(v, dict) and "worst" in v):
+        raise AssertionError(f"int8/remat: remat on and off differ: {summary}")
+    loss = summary["loss"]
+    if abs(loss["on"] - loss["off"]) > max(4 * abs(loss["off_ulp"] - loss["off"]),
+                                           1e-6 * abs(loss["off"])) or not torch.equal(
+            runs["on"]["gen"], runs["off"]["gen"]):
+        raise AssertionError(f"int8/remat: the remat step's loss {loss} or generator state "
+                             "differs")
+    if not moved > 1e-4:
+        raise AssertionError(f"int8/remat: the running statistics did not move ({moved})")
+    return summary
+
+
+I8_SHAPES = [(m, k, n) for m in (64 * 56, 32 * 249) for k, n in ((256, 2048), (2048, 256),
+                                                                  (256, 4233))]
+
+
+def w8a8_products(card):
+    """The W8A8 product at the path's shapes (M = 64 x 56 rows of the recipe's
+    batch and 32 x 249 of the train bench's, against the FFNs' (256, 2048),
+    (2048, 256) and the CTC projection's (256, 4233)): ``int8_mm`` held
+    against the float64 product of the same int8 operands (exact on the
+    int32 accumulators), timed (CUDA graph, N = 4233 padded to 4240 every
+    call, as on the path) beside ``torch.matmul`` in bf16, the quantization
+    passes (``w8a8_operands``: both operands' scales and roundings) and the
+    whole ``w8a8_apply``. Nothing is claimed; the numbers go to PERF.md."""
+    from mindaudio_torch.ops import quant
+
+    rows = []
+    for m, k, n in I8_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(m + k + n)
+        x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        w = 0.05 * torch.randn(n, k, device="cuda", generator=g)
+        xq, sx, wq, sw = quant.w8a8_operands(x, w)
+        acc = quant.int8_mm(xq, wq.t())
+        exact = xq.double() @ wq.double().t()
+        mismatches = int((acc.double() != exact).sum())
+        if acc.dtype != torch.int32 or acc.shape != (m, n) or mismatches:
+            raise AssertionError(f"int8_mm at {(m, k, n)}: {mismatches} accumulators differ "
+                                 f"from the float64 product")
+        xb, wb = x, w.to(torch.bfloat16).t()
+        row = {"m": m, "k": k, "n": n,
+               "int8_mm_ms": cuda_ms(lambda: quant.int8_mm(xq, wq.t())),
+               "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(xb, wb)),
+               "quantize_ms": cuda_ms(lambda: quant.w8a8_operands(x, w)),
+               "w8a8_apply_ms": cuda_ms(lambda: quant.w8a8_apply(x, w)),
+               "int8_bound_ms": 1e3 * max((m * k + k * n + 4 * m * n) / H100_BYTES_PER_S,
+                                          2 * m * k * n / H100_INT8_OP_PER_S),
+               "bf16_bound_ms": 1e3 * max(2 * (m * k + k * n + m * n) / H100_BYTES_PER_S,
+                                          2 * m * k * n / H100_BF16_FLOP_PER_S),
+               "max_abs_err": 0.0}
+        rows.append(row)
+        log(f"W8A8 product {m}x{k}x{n}: int8 accumulators equal to float64 on every element; "
+            f"int8_mm {row['int8_mm_ms']:.4f} ms (bound {row['int8_bound_ms']:.4f}), bf16 "
+            f"torch.matmul {row['bf16_matmul_ms']:.4f} (bound {row['bf16_bound_ms']:.4f}), the "
+            f"quantization passes {row['quantize_ms']:.4f}, w8a8_apply whole "
+            f"{row['w8a8_apply_ms']:.4f} ({card})")
+    return rows
+
+
+def dsp_on_card(card):
+    """The DSP ops of ``ops.spectral`` and ``ops.resample`` on the card at a
+    realistic size against the same ops on the CPU in float64, at the
+    module's "highest" precision (TF32 off, held to the tolerance stated
+    per op) and once at "high" (TF32 on: reported, held only to be
+    finite)."""
+    from mindaudio_torch.ops import resample as rs
+    from mindaudio_torch.ops import spectral as sp
+
+    rng = np.random.default_rng(21)
+    wav16, _ = synthetic_speech(16, 22)
+    wav16 = torch.from_numpy(wav16[:, :160000])
+    cases = []
+    for orig in (44100, 14400, 17600):
+        x = torch.from_numpy((0.1 * rng.standard_normal((16, orig * 10))).astype(np.float32))
+        cases.append((f"resample {orig}->16000 (16 x 10 s)", 1e-5, x,
+                      functools.partial(rs.resample, orig_freq=orig, new_freq=16000)))
+    spec = sp.stft(torch.from_numpy(rng.standard_normal((16, 128000))).double(), n_fft=512,
+                   device="cpu").float()
+    cases.append(("istft (16, 257, 1001)", 1e-5, spec,
+                  functools.partial(sp.istft, n_fft=512, device=None)))
+    cases.append(("mfcc (16 x 10 s)", 1e-3, wav16, functools.partial(sp.mfcc, device=None)))
+    feats = torch.from_numpy((5.0 + 3.0 * rng.standard_normal((16, 1001, 80))).astype(np.float32))
+    cases.append(("sliding_window_cmn (16, 1001, 80)", 1e-5, feats,
+                  functools.partial(sp.sliding_window_cmn)))
+    rows = []
+    for name, tol, x, fn in cases:
+        def call(t, device, **kw):
+            if "device" in getattr(fn, "keywords", {}):
+                return fn(t, device=device, **kw)
+            return fn(t.to(device), **kw)
+
+        ref = call(x.double(), "cpu").numpy()
+        scale = float(np.abs(ref).max())
+        row = {"op": name, "tol": tol}
+        for level in ("highest", "high"):
+            kw = {} if fn.func is sp.sliding_window_cmn else {"precision": level}
+            got = call(x, "cuda", **kw).cpu().double().numpy()
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                raise AssertionError(f"{name}: shape {got.shape} vs {ref.shape}, or not finite")
+            row[f"rel_err_{level}"] = float(np.abs(got - ref).max() / scale)
+        rows.append(row)
+        log(f"DSP on the card, {name}: max |card - CPU float64| / max |ref| "
+            f"{row['rel_err_highest']:.3e} at precision highest (tol {tol}), "
+            f"{row['rel_err_high']:.3e} with TF32 ({card})")
+        if row["rel_err_highest"] > tol:
+            raise AssertionError(f"{name}: {row['rel_err_highest']} over {tol}")
+    return rows
+
+
+def int8_remat_phase(launch_counters, card):
+    """Phase 16: the Conformer recipe trained W8A8 with rematerialized
+    blocks (``--model.int8_ffn true --model.remat true``) as a user runs it,
+    at the full width and depth of ``conformer.yaml`` on phase 9's cipher
+    corpus (B = 64 x 227 frames, bf16 autocast): ``train.main()`` for
+    ``I8_STEPS`` steps with a save, ``predict.main()`` with ``ctc_greedy``,
+    the checkpoint loaded into the float model; then the four settings'
+    step times and peaks, remat against the plain step on the card, one
+    float32 remat step against the CPU, the W8A8 product at the path's
+    shapes and the DSP ops on the card. ``launch_counters`` are the four
+    kernel wrappers (int8 GEMM, CTC forward and backward, log-mel), set to 0
+    just before the recipe runs and read just after. Returns the summary."""
+    import tempfile
+
+    from mindaudio_torch.models.layers import Int8Dense
+    from mindaudio_torch.ops import quant
+    from mindaudio_torch.recipes.conformer import compute_cmvn_stats, convergence_run
+    from mindaudio_torch.recipes.conformer import predict as rpredict
+    from mindaudio_torch.recipes.conformer import train as rtrain
+    from mindaudio_torch.train import checkpoint
+
+    i8 = quant.int8_training_matmul
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as root:
+        convergence_run.gen(root, n_train=RECIPE_UTTS[0], n_dev=RECIPE_UTTS[1],
+                            n_test=RECIPE_UTTS[2])
+        flags = ["--model.int8_ffn", "true", "--model.remat", "true",
+                 "--train.log_every_steps", "1", "--train.save_every_steps", str(I8_STEPS),
+                 "--train.keep_checkpoint_max", "2", "--train.ckpt_dir", f"{root}/ckpt"]
+        compute_cmvn_stats.main(i8_recipe_args(root, I8_STEPS, *flags))
+        cfg, _ = rtrain.parse_args(i8_recipe_args(root, I8_STEPS, *flags))
+        model = rtrain.build_model(cfg, 4233, torch.device("cuda"))
+        n_w8a8 = sum(isinstance(m, Int8Dense) for m in model.modules())
+        n_enc = sum(isinstance(m, Int8Dense) for m in model.encoder.modules())
+        if (cfg.model.d_model, cfg.model.ffn_dim, cfg.model.num_encoder_layers,
+                n_w8a8, n_enc) != (D_MODEL, FFN, ENC_LAYERS, 4 * ENC_LAYERS + 1, 4 * ENC_LAYERS):
+            raise AssertionError(f"int8/remat: not the full-width W8A8 model: {cfg.model}")
+        del model
+
+        # the main path: the counts set to 0 just before it and read just after
+        for counter in launch_counters:
+            counter.launches = 0
+        quant.int8_mm.launches = i8.fwd_launches = i8.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = rtrain.main(i8_recipe_args(root, I8_STEPS, *flags))
+        train_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        train_counts = {c.__name__: c.launches for c in launch_counters}
+        train_i8 = {"int8_mm": quant.int8_mm.launches, "fwd": i8.fwd_launches,
+                    "bwd": i8.bwd_launches}
+        quant.int8_mm.launches = i8.fwd_launches = i8.bwd_launches = 0
+        t = time.perf_counter()
+        cer = rpredict.main(i8_recipe_args(root, 0, *flags, "--decode.mode", "ctc_greedy",
+                                           "--decode.average_num", "1",
+                                           "--decode.result_file", f"{root}/result.txt"))
+        predict_s = time.perf_counter() - t
+        counts = {c.__name__: c.launches for c in launch_counters}
+        predict_i8 = {"int8_mm": quant.int8_mm.launches, "fwd": i8.fwd_launches,
+                      "bwd": i8.bwd_launches}
+
+        steps, evals = out["steps"], len(out["dev_losses"])
+        losses = out["losses"]
+        log(f"int8/remat recipe: train {steps} steps in {train_s:.1f} s (W8A8 layers "
+            f"{n_w8a8}, {n_enc} in the encoder, rematerialized), losses {losses[0]:.4f} .. "
+            f"{losses[-1]:.4f} (first five {np.mean(losses[:5]):.4f}, last five "
+            f"{np.mean(losses[-5:]):.4f}), dev loss {out['dev_losses']}, ms per step (host "
+            f"clock, one step ending in the loss's read-back) median "
+            f"{statistics.median(out['window_ms']):.2f}, peak {peak_gib:.2f} GiB; predict "
+            f"ctc_greedy CER {100 * cer:.2f}% (not judged) in {predict_s:.1f} s; kernel "
+            f"launches {counts}; W8A8 products in training {train_i8}, in decoding "
+            f"{predict_i8} ({card})")
+        want_fwd = steps * (2 * n_enc + (n_w8a8 - n_enc)) + evals * n_w8a8
+        if train_i8 != {"int8_mm": want_fwd, "fwd": want_fwd, "bwd": 2 * n_w8a8 * steps}:
+            raise AssertionError(f"int8/remat: W8A8 products {train_i8}, expected {want_fwd} "
+                                 f"forward (the encoder's twice a step, recomputed) and "
+                                 f"{2 * n_w8a8 * steps} backward")
+        if (train_counts["ctc_dp_fwd"], train_counts["ctc_dp_bwd"]) != (steps + evals, steps):
+            raise AssertionError(f"int8/remat: CTC launches {train_counts}, expected one "
+                                 f"forward and one backward a step, one forward a dev batch")
+        if counts["ctc_dp_fwd"] != train_counts["ctc_dp_fwd"] or counts["int8_matmul"] or \
+                counts["fused_logmel"]:
+            raise AssertionError(f"int8/remat: launches {counts}")
+        if predict_i8["bwd"] or not predict_i8["fwd"] or predict_i8["fwd"] % n_w8a8 or \
+                predict_i8["int8_mm"] != predict_i8["fwd"]:
+            raise AssertionError(f"int8/remat: decoding's W8A8 products {predict_i8}")
+        if steps != I8_STEPS or not np.isfinite(losses).all() or not np.isfinite(
+                list(out["dev_losses"].values())).all():
+            raise AssertionError(f"int8/remat: {steps} steps, losses {losses}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"int8/remat: the loss did not fall: {losses}")
+        with open(f"{root}/result.txt", encoding="utf-8") as f:
+            if len(f.read().splitlines()) != RECIPE_UTTS[2] or not 0 <= cer < float("inf"):
+                raise AssertionError(f"int8/remat: decode CER {cer}")
+
+        # the checkpoint loads into the float model of the default config
+        plain, _ = rtrain.parse_args(i8_recipe_args(root, 0))
+        tok = rtrain.build_tokenizer(plain)
+        fmodel = rtrain.build_model(plain, tok.vocab_size, torch.device("cuda")).eval()
+        rtrain.load_params(fmodel, checkpoint.restore_checkpoint(f"{root}/ckpt")["params"])
+        batch, _ = i8_fixed_batch(plain, "cpu", n=4)
+        with torch.no_grad():
+            feats, feat_lens = rtrain.device_features(
+                plain, batch["wavs"].cuda(), batch["wav_lens"].cuda(), train=False)
+            floss, _ = fmodel({**{k: v.cuda() for k, v in batch.items()}, "feats": feats,
+                               "feat_lens": feat_lens})
+        if not torch.isfinite(floss):
+            raise AssertionError(f"int8/remat: the float model's loss {floss}")
+        log(f"int8/remat: the W8A8 checkpoint loads into the float model unchanged; its "
+            f"eval loss on 4 utterances {floss.item():.4f}")
+        del fmodel
+
+        settings = [i8_setting_ms(root, a, b) for a in (False, True) for b in (False, True)]
+        log("int8/remat: ms a step on one batch of 64 x 227 frames (bf16 autocast, host clock, "
+            f"{I8_TIMED_STEPS} steps ending in a read-back) and peak memory ({card}): "
+            + "; ".join(f"int8_ffn {s['int8_ffn']}, remat {s['remat']}: {s['ms']:.2f} ms, "
+                        f"{s['peak_gib']:.3f} GiB, {s['int8_mm_per_step']:.0f} int8 products"
+                        for s in settings))
+        by = {(s["int8_ffn"], s["remat"]): s for s in settings}
+        for int8 in (False, True):
+            if not by[int8, True]["peak_gib"] < by[int8, False]["peak_gib"]:
+                raise AssertionError(f"int8/remat: remat did not lower the peak: {settings}")
+        if by[False, False]["int8_mm_per_step"] or by[True, False]["int8_mm_per_step"] != \
+                n_w8a8 or by[True, True]["int8_mm_per_step"] != n_w8a8 + n_enc:
+            raise AssertionError(f"int8/remat: int8 products a step {settings}")
+
+        pairs = remat_pairs(root)
+        build, make_optimizer, make_step, batch, _ = i8_float32_step(root, True, 0.0)
+        against_cpu = card_against_cpu(
+            "int8/remat: one float32 step at full width with remat, B=8 x 227 frames, dropout "
+            "off, ctc kernels on the card, the plain recursion on the CPU", build,
+            make_optimizer, make_step, batch, "wavs", i8_batch_to,
+            {"loss": 1e-4, "grad_norm": 1e-3, "update": 1e-2})
+    products = w8a8_products(card)
+    dsp = dsp_on_card(card)
+    torch.cuda.empty_cache()
+    return {"launches": counts, "steps": steps, "dev_evaluations": evals, "losses": losses,
+            "window_ms": out["window_ms"], "train_s": train_s, "peak_gib": peak_gib,
+            "cer": cer, "w8a8_layers": n_w8a8, "w8a8_products_train": train_i8,
+            "w8a8_products_decode": predict_i8, "settings": settings, "remat_pairs": pairs,
+            "card_against_cpu": against_cpu, "w8a8_shapes": products, "dsp": dsp}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2918,6 +3397,14 @@ def main():
         k: v for k, v in vocoder.items() if k not in ("losses", "window_ms")}}))
     wg_launches = vocoder["launches"]
 
+    # 16. the Conformer recipe trained W8A8 with rematerialized blocks; the
+    # W8A8 product and the DSP ops on the card
+    int8_remat = int8_remat_phase(kernels, card)
+    log("int8_remat: " + json.dumps({"card": card, **{
+        k: v for k, v in int8_remat.items()
+        if k not in ("losses", "window_ms", "card_against_cpu")}}))
+    i8_launches = int8_remat["launches"]
+
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
@@ -2939,6 +3426,7 @@ def main():
         "separation_launches": sep_launches["int8_matmul"],
         "fastspeech2_launches": tts_launches["int8_matmul"],
         "wavegrad_launches": wg_launches["int8_matmul"],
+        "int8_remat_launches": i8_launches["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2956,6 +3444,7 @@ def main():
         "separation_launches": sep_launches["ctc_dp_fwd"],
         "fastspeech2_launches": tts_launches["ctc_dp_fwd"],
         "wavegrad_launches": wg_launches["ctc_dp_fwd"],
+        "int8_remat_launches": i8_launches["ctc_dp_fwd"],
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -2970,7 +3459,8 @@ def main():
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"],
         "separation_launches": sep_launches["ctc_dp_bwd"],
         "fastspeech2_launches": tts_launches["ctc_dp_bwd"],
-        "wavegrad_launches": wg_launches["ctc_dp_bwd"], "card": card,
+        "wavegrad_launches": wg_launches["ctc_dp_bwd"],
+        "int8_remat_launches": i8_launches["ctc_dp_bwd"], "card": card,
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",
@@ -2983,6 +3473,7 @@ def main():
         "separation_launches": sep_launches["fused_logmel"],
         "fastspeech2_launches": tts_launches["fused_logmel"],
         "wavegrad_launches": wg_launches["fused_logmel"],
+        "int8_remat_launches": i8_launches["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

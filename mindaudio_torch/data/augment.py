@@ -1,8 +1,10 @@
-"""Host-side waveform augmentation (the port's copies of ``convolve1d``,
-``reverberate``, ``rms_normalize``, ``caculate_rms``, ``add_noise``,
-``add_reverb``, ``drop_freq``, ``speed_perturb`` and ``drop_chunk`` from
-``mindaudio_tpu.data.augment``, pinned to them bit for bit by
-``tests/test_torch_ecapa_recipe.py``).
+"""Host-side waveform and spectrogram augmentation (the port's copy of
+``mindaudio_tpu.data.augment``: ``convolve1d``, ``reverberate``,
+``rms_normalize``, ``caculate_rms``, ``add_noise``, ``add_reverb``,
+``drop_freq``, ``speed_perturb`` and ``drop_chunk``, pinned to the originals
+bit for bit by ``tests/test_torch_ecapa_recipe.py``; ``frequencymasking``,
+``timemasking``, ``add_babble``, ``time_stretch`` and ``pitch_shift`` by
+``tests/test_torch_data_copies.py``).
 
 NumPy on the host, as in the JAX package, so that one
 ``np.random.Generator`` gives the same batches in both: the ECAPA-TDNN
@@ -18,9 +20,11 @@ import numpy as np
 from .filters import notch_filter
 from .io import read
 from .processing import resample, rescale
-from .spectrum import compute_amplitude
+from .spectrum import compute_amplitude, dB_to_amplitude, istft, stft
 
 __all__ = [
+    "frequencymasking",
+    "timemasking",
     "convolve1d",
     "reverberate",
     "rms_normalize",
@@ -30,6 +34,9 @@ __all__ = [
     "drop_freq",
     "speed_perturb",
     "drop_chunk",
+    "add_babble",
+    "time_stretch",
+    "pitch_shift",
 ]
 
 
@@ -398,3 +405,166 @@ def drop_chunk(
     if waveforms.ndim == 3:
         mask = mask[:, :, None]
     return np.where(mask, fill, dropped)
+
+
+def _mask_along_axis(spec, mask_param, mask_start, mask_value, axis, iid_masks, rng):
+    """Shared SpecAugment masking (torchaudio Frequency/TimeMasking semantics).
+
+    ``axis``: -2 = frequency, -1 = time, on input shaped ``(..., freq, time)``.
+    With ``iid_masks`` a different mask is drawn per batch element; otherwise
+    one random-width mask at a random start (``mask_start`` is only honored in
+    the iid branch, like msaudio).
+    """
+    rng = np.random.default_rng() if rng is None else rng
+    spec = np.array(spec, copy=True)
+    if mask_param == 0:
+        return spec
+    axis_len = spec.shape[axis]
+
+    def apply_one(block):
+        width = int(rng.integers(0, mask_param + 1))
+        if iid_masks:
+            start = int(mask_start)
+        else:
+            start = int(rng.integers(0, max(axis_len - width, 0) + 1))
+        if width == 0:
+            return block
+        sl = [slice(None)] * block.ndim
+        sl[axis] = slice(start, start + width)
+        block[tuple(sl)] = mask_value
+        return block
+
+    if iid_masks and spec.ndim > 2:
+        for i in range(spec.shape[0]):
+            spec[i] = apply_one(spec[i])
+        return spec
+    return apply_one(spec)
+
+
+def frequencymasking(
+    waveform, iid_masks=False, frequency_mask_param=0, mask_start=0, mask_value=0.0, rng=None
+):
+    """Mask a random band of frequency bins in a spectrogram ``(..., freq, time)``.
+
+    Parity: reference augment.py:28 (msaudio.FrequencyMasking).
+    """
+    return _mask_along_axis(
+        waveform, frequency_mask_param, mask_start, mask_value, -2, iid_masks, rng
+    )
+
+
+def timemasking(
+    waveform, iid_masks=False, frequency_mask_param=0, mask_start=0, mask_value=0.0, rng=None
+):
+    """Mask a random band of time frames in a spectrogram ``(..., freq, time)``.
+
+    Parity: reference augment.py:65 (msaudio.TimeMasking).
+    """
+    return _mask_along_axis(
+        waveform, frequency_mask_param, mask_start, mask_value, -1, iid_masks, rng
+    )
+
+
+def add_babble(waveforms, lengths, speaker_count=3, snr_low=0, snr_high=0, mix_prob=1.0, rng=None):
+    """Simulate babble by mixing rolled copies of the batch into each signal.
+
+    Parity: reference augment.py:433.
+    """
+    rng = np.random.default_rng() if rng is None else rng
+    waveforms = np.asarray(waveforms)
+    if rng.random() > mix_prob:
+        return waveforms.copy()
+
+    batch = len(waveforms)
+    lengths = (np.asarray(lengths) * waveforms.shape[1]).reshape(batch, 1)
+
+    clean_amplitude = compute_amplitude(waveforms, lengths)
+    snr = rng.random((batch, 1)) * (snr_high - snr_low) + snr_low
+    noise_gain = 1.0 / (dB_to_amplitude(snr, 1, 1) + 1.0)
+
+    # item b babbles with items b-1 .. b-speaker_count (cyclic): one
+    # fancy-indexed gather instead of a roll-accumulate loop. The effective
+    # babble length is the max over the contributing items' lengths.
+    src = (np.arange(batch)[None, :]
+           - np.arange(1, speaker_count + 1)[:, None]) % batch
+    babble = waveforms[src].sum(axis=0)
+    babble_len = lengths[src].max(axis=0)
+    babble = babble * (noise_gain * clean_amplitude
+                       / (compute_amplitude(babble, babble_len) + 1e-14))
+    out = (1.0 - noise_gain) * waveforms + babble
+    return out.astype(waveforms.dtype, copy=False)
+
+
+def time_stretch(waveforms, rate=None):
+    """Phase-vocoder time stretch by ``rate`` without changing pitch.
+
+    Parity: reference augment.py:795.
+    """
+    if rate is None or rate <= 0:
+        raise ValueError("rate must be a positive number")
+    spec = stft(waveforms)
+    spec_stretch = _phase_vocoder(spec, rate=rate)
+    length_stretch = int(round(np.asarray(waveforms).shape[-1] / rate))
+    return istft(spec_stretch, length=length_stretch)
+
+
+def _phase_vocoder(matrix, rate, hop_length=None, n_fft=None):
+    """Vectorized Ellis phase vocoder over an STFT matrix ``(..., freq, time)``.
+
+    One gather + one cumulative sum replace the reference's per-output-frame
+    Python loop (reference augment.py:828-890): magnitudes are linearly
+    interpolated between the two bracketing input frames; each bin's phase
+    advance is unwrapped against its expected per-hop advance and the output
+    phase is the running (exclusive) sum of those advances along the
+    stretched time axis. The accumulation runs in float64 — the loop form
+    kept its accumulator in the float32 the first ``np.angle`` returned, so
+    its phase drifted ~1e-4 rad/frame once the unwrapped phase grew large.
+    """
+    matrix = np.asarray(matrix)
+    if n_fft is None:
+        n_fft = 2 * (matrix.shape[-2] - 1)
+    hop = int(n_fft // 4) if hop_length is None else hop_length
+
+    # fractional input positions of the stretched output frames
+    pos = np.arange(0, matrix.shape[-1], rate, dtype=np.float64)
+    lo = pos.astype(np.int64)
+    frac = pos - lo
+
+    padded = np.pad(matrix, [(0, 0)] * (matrix.ndim - 1) + [(0, 2)])
+    # transcendentals once over the padded matrix, in its native f32
+    # precision (the f64 cumsum below is where accuracy actually matters);
+    # the per-output-frame gathers are then cheap indexing
+    mag_all = np.abs(padded)
+    ang_all = np.angle(padded)
+
+    f = frac.astype(mag_all.dtype)
+    mag = (1.0 - f) * mag_all[..., lo] + f * mag_all[..., lo + 1]
+
+    omega = np.linspace(0, np.pi * hop, matrix.shape[-2])[:, None]
+    delta = (ang_all[..., lo + 1] - ang_all[..., lo]) - omega
+    delta -= 2.0 * np.pi * np.round(delta / (2.0 * np.pi))  # wrap to ±pi
+    advance = omega + delta
+    phase = (np.cumsum(advance, axis=-1) - advance) + ang_all[..., :1]
+    phase = phase.astype(mag.dtype)
+    # assemble through the real/imag views: `mag * (cos + 1j*sin)` would
+    # promote everything to complex128 (the `1j` literal is a Python complex)
+    out = np.empty(phase.shape, dtype=matrix.dtype)
+    out.real = mag * np.cos(phase)
+    out.imag = mag * np.sin(phase)
+    return out
+
+
+def pitch_shift(waveforms, sr, n_steps, bins_per_octave=12):
+    """Shift pitch by ``n_steps`` (stretch then resample, reference augment.py:874)."""
+    rate = 2.0 ** (-float(n_steps) / bins_per_octave)
+    stretched = time_stretch(waveforms, rate=rate)
+    shifted = resample(stretched, orig_freq=float(sr) / rate, new_freq=sr)
+    target = stretched.shape[-1]
+    if shifted.shape[-1] > target:
+        return shifted[..., :target]
+    if shifted.shape[-1] < target:
+        pad = [(0, 0)] * shifted.ndim
+        pad[-1] = (0, target - shifted.shape[-1])
+        return np.pad(shifted, pad)
+    return shifted
+

@@ -1,9 +1,12 @@
-"""Host-side NumPy signal analysis: the port's copies of ``mindaudio_tpu
-.data.spectrum``'s signal levels (``compute_amplitude``, ``dB_to_amplitude``,
-for the waveform augmentation; pinned by ``tests/test_torch_ecapa_recipe.py``)
-and of its librosa-convention ``stft`` and torchaudio-convention
-``spectrogram``, ``melscale`` and ``melspectrogram`` (the FastSpeech2
-recipe's mels; pinned bit for bit by ``tests/test_torch_fastspeech2_recipe.py``).
+"""Host-side NumPy signal analysis: the port's copy of ``mindaudio_tpu
+.data.spectrum``. Its signal levels (``compute_amplitude``,
+``dB_to_amplitude``, for the waveform augmentation) are pinned by
+``tests/test_torch_ecapa_recipe.py``; its librosa-convention ``stft`` and
+torchaudio-convention ``spectrogram``, ``melscale`` and ``melspectrogram``
+(the FastSpeech2 recipe's mels) bit for bit by
+``tests/test_torch_fastspeech2_recipe.py``; ``amplitude_to_dB``, ``frame``,
+``overlap_add``, ``istft``, ``magphase`` and ``resynthesize`` by
+``tests/test_torch_data_copies.py``.
 """
 
 from __future__ import annotations
@@ -12,8 +15,20 @@ import numpy as np
 
 from ..ops.filterbanks import get_window, melscale_fbanks
 
-__all__ = ["compute_amplitude", "dB_to_amplitude", "stft", "spectrogram", "melscale",
-           "melspectrogram"]
+__all__ = [
+    "amplitude_to_dB",
+    "dB_to_amplitude",
+    "stft",
+    "istft",
+    "compute_amplitude",
+    "spectrogram",
+    "melspectrogram",
+    "magphase",
+    "melscale",
+    "resynthesize",
+    "frame",
+    "overlap_add",
+]
 
 
 def dB_to_amplitude(wavform, ref, power):
@@ -238,3 +253,208 @@ def melspectrogram(
         "mel_type": mel_type,
     }
     return melscale(spectrogram(waveforms, **analysis), **projection)
+
+
+def amplitude_to_dB(wavform, stype="power", ref=1.0, amin=1e-10, top_db=80.0):
+    """Convert an amplitude/power spectrogram to decibels.
+
+    ``top_db`` clamps each *batch element* (leading dims collapsed, channels
+    kept together) at ``max - top_db``, matching the reference's batch-expand
+    behavior (spectrum.py:79-89).
+
+    Args:
+        wavform: real spectrogram shaped ``(..., freq, time)``.
+        stype: 'power' (10*log10) or 'magnitude' (20*log10).
+        ref: scalar or callable reference value.
+        amin: lower clamp before the log.
+        top_db: dynamic-range floor in dB; ``None`` disables.
+    """
+    spec = np.asarray(wavform)
+    if np.iscomplexobj(spec):
+        raise UserWarning(
+            "amplitude_to_dB was called on complex input; "
+            "call amplitude_to_dB(np.abs(D)**2) instead."
+        )
+
+    scale = {"power": 10.0}.get(stype, 20.0)
+    ref_val = float(ref(spec)) if callable(ref) else abs(ref)
+    out = scale * np.log10(np.clip(spec, amin, None))
+    out -= scale * np.log10(amin if amin > ref_val else ref_val)
+    if top_db is None:
+        return out
+
+    # one dynamic-range floor per batch element: fold every axis above the
+    # trailing (channel?, freq, time) group into one flat batch axis
+    group = out.shape[-3:] if out.ndim > 2 else out.shape
+    flat = out.reshape((-1,) + group)
+    per_elem_max = flat.max(axis=tuple(range(1, flat.ndim)), keepdims=True)
+    return np.maximum(flat, per_elem_max - top_db).reshape(out.shape)
+
+
+def frame(x, frame_length=2048, hop_length=64):
+    """Slice a signal into overlapping frames along the last axis.
+
+    Returns shape ``(..., frame_length, n_frames)`` (frame index last, matching
+    reference spectrum.py:281).
+    """
+    if hop_length < 1:
+        raise ValueError(f"Invalid hop_length: {hop_length}")
+    x = np.asarray(x)
+    total = (x.shape[-1] - frame_length) // hop_length + 1
+    # (..., total, frame_length) strided view, then put the frame axis last.
+    view = np.lib.stride_tricks.sliding_window_view(x, frame_length, axis=-1)
+    return np.swapaxes(view[..., ::hop_length, :][..., :total, :], -1, -2)
+
+
+def overlap_add(output_buffer, frames, hop_length):
+    """In-place overlap-add of ``frames`` ``(..., n_fft, n_frames)`` into a signal buffer."""
+    _overlap_add_time_major(output_buffer, np.swapaxes(frames, -1, -2), hop_length)
+
+
+def _overlap_add_time_major(output_buffer, frames, hop_length):
+    """Overlap-add of time-major ``(..., n_frames, n_fft)`` frames.
+
+    Vectorized hop-strided scatter (the host twin of the device GCD-subframe
+    trick in ``processing.overlap_and_add``): each frame is split into
+    ``ceil(n_fft / hop)`` hop-sized segments; for a fixed segment index the
+    target slots across frames are disjoint consecutive hop-slots, so the
+    whole accumulation is ``n_fft / hop`` strided adds instead of a Python
+    loop over ``n_frames`` (a 10-minute file at hop 160 is ~56k iterations
+    the loop form paid per call). Time-major keeps every access contiguous.
+    """
+    from numpy.lib.stride_tricks import as_strided
+
+    n_frames, n_fft = frames.shape[-2:]
+    n_seg = -(-n_fft // hop_length)
+    width = n_seg * hop_length  # frame stride rounded up to a hop multiple
+
+    # Frames t and t + n_seg never overlap (t*hop + n_fft <= (t+n_seg)*hop),
+    # so the frames with t ≡ r (mod n_seg) write DISJOINT n_fft-sized spans
+    # spaced exactly `width` apart — each residue class is one strided
+    # block add into the accumulator, n_seg passes total.
+    n_slots = n_frames + n_seg - 1
+    acc = np.zeros(frames.shape[:-2] + (n_slots * hop_length,),
+                   dtype=output_buffer.dtype)
+    for r in range(n_seg):
+        rows = frames[..., r::n_seg, :]  # (..., m_r, n_fft)
+        m_r = rows.shape[-2]
+        if m_r == 0:
+            continue
+        base = acc[..., r * hop_length :]
+        view = as_strided(
+            base,
+            shape=acc.shape[:-1] + (m_r, n_fft),
+            strides=base.strides[:-1] + (width * base.strides[-1], base.strides[-1]),
+        )
+        view += rows
+    out_len = min(output_buffer.shape[-1], n_fft + hop_length * (n_frames - 1))
+    output_buffer[..., :out_len] += acc[..., :out_len]
+
+
+def istft(
+    stft_matrix,
+    n_fft=None,
+    win_length=None,
+    hop_length=None,
+    window="hann",
+    center=True,
+    length=None,
+):
+    """Inverse STFT via window-sum-square-normalized overlap-add.
+
+    Perfectly reconstructs a signal from an unmodified ``stft`` output (up to
+    edge effects), as asserted by tests. Parity: reference spectrum.py:346.
+    """
+    stft_matrix = np.asarray(stft_matrix)
+    n_fft = 2 * (stft_matrix.shape[-2] - 1) if n_fft is None else n_fft
+    win_length = n_fft if win_length is None else win_length
+    hop_length = win_length // 4 if hop_length is None else hop_length
+
+    synth_win = _pad_center(get_window(window, win_length, fftbins=True), n_fft)
+
+    total = stft_matrix.shape[-1]
+    if length:
+        span = length + n_fft if center else length
+        total = min(total, -(-span // hop_length))
+
+    buf_len = n_fft + hop_length * (total - 1)
+    signal = np.zeros(stft_matrix.shape[:-2] + (buf_len,), dtype=np.float64)
+
+    # time-major (..., total, n_fft) windowed inverse frames: the irfft,
+    # the window broadcast, and the overlap-add scatter all run on the
+    # contiguous last axis
+    inv = np.fft.irfft(
+        np.swapaxes(stft_matrix[..., :total], -1, -2), n=n_fft, axis=-1
+    ) * synth_win
+    _overlap_add_time_major(signal, inv, hop_length)
+
+    envelope = _window_sumsquare(
+        window=window,
+        n_frames=total,
+        win_length=win_length,
+        n_fft=n_fft,
+        hop_length=hop_length,
+    )
+    live = envelope > 1e-9
+    signal[..., live] /= envelope[live]
+
+    margin = n_fft // 2 if center else 0
+    if length is None:
+        return signal[..., margin: buf_len - margin] if center else signal
+    return _fix_length(signal[..., margin:], length)
+
+
+def _window_sumsquare(window, n_frames, win_length, n_fft, hop_length):
+    # the same hop-strided scatter as overlap_add, on the broadcast window
+    win_sq = _pad_center(get_window(window, win_length, fftbins=True) ** 2, n_fft)
+    x = np.zeros(n_fft + hop_length * (n_frames - 1), dtype=np.float64)
+    overlap_add(x, np.broadcast_to(win_sq[:, None], (n_fft, n_frames)), hop_length)
+    return x
+
+
+def _fix_length(y, size):
+    if y.shape[-1] > size:
+        return y[..., :size]
+    if y.shape[-1] < size:
+        lengths = [(0, 0)] * y.ndim
+        lengths[-1] = (0, size - y.shape[-1])
+        return np.pad(y, lengths)
+    return y
+
+
+def magphase(waveform, power, iscomplex=True):
+    """Split a spectrogram into magnitude and phase.
+
+    For complex input, phase is the unit-modulus complex array ``x / |x|``
+    (zero bins -> 1+0j); for a real ``(..., 2)`` stack, phase is the angle in
+    radians (the ``msaudio.Magphase`` convention). ``power`` is applied to the
+    magnitude. Parity: reference spectrum.py:701.
+    """
+    if iscomplex:
+        cspec = np.asarray(waveform)
+        absS = np.abs(cspec)
+        dead = absS == 0
+        unit = (cspec / (absS + dead)).astype(np.complex64)
+        unit += dead  # zero bins -> exactly 1+0j
+        return absS**power, unit
+    ri = np.asarray(waveform)
+    absS = np.hypot(ri[..., 0], ri[..., 1]) ** power
+    return (absS.astype(np.float32),
+            np.arctan2(ri[..., 1], ri[..., 0]).astype(np.float32))
+
+
+def resynthesize(enhanced_mag, noisy_inputs, normalize_wavs=True):
+    """Rebuild waveforms from an enhanced magnitude plus the noisy phase.
+
+    Parity: reference spectrum.py:777.
+    """
+    ri = stft(noisy_inputs, return_complex=False)
+    angle = np.arctan2(ri[..., 1], ri[..., 0])
+    recon = istft(enhanced_mag * np.exp(1j * angle))
+
+    if not normalize_wavs:
+        return recon
+    from .processing import normalize
+
+    return normalize(recon, norm="max")
+

@@ -5,9 +5,9 @@ A Conformer encoder, a Transformer decoder with label-smoothing loss and a
 CTC head, combined as ``loss = w * loss_ctc + (1 - w) * loss_att`` in
 ``forward``. ``encode``, ``ctc_log_probs``, ``decode_step``,
 ``decoder_logits`` and, streaming, ``encode_chunk`` are the pieces that
-decoding calls. The ``remat``,
-``int8_ffn``, MoE, pipeline and sequence-parallel knobs of the JAX module are
-not ported yet.
+decoding calls. ``remat`` and ``int8_ffn`` are the JAX module's training
+knobs (``int8_ffn`` also runs the CTC projection W8A8); its MoE, pipeline
+and sequence-parallel knobs are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from .. import resolve_device
 from ..loss.ctc_loss import ctc_loss
 from ..loss.label_smoothing_loss import IGNORE_ID, label_smoothing_loss
 from .conformer import ConformerEncoder, TransformerDecoder
-from .layers import FastDropout
+from .layers import FastDropout, Int8Dense
 
 __all__ = ["ASRModel"]
 
@@ -37,7 +37,10 @@ class ASRModel(nn.Module):
     ``forward`` takes a batch dict and returns ``(loss, metrics)``. Training
     is ``model.train()`` (the JAX ``deterministic=False``) after
     :meth:`set_dropout_generator`. ``ctc_impl`` is ``"auto"``, ``"kernel"``
-    or ``"scan"`` (``loss/ctc_loss.py``).
+    or ``"scan"`` (``loss/ctc_loss.py``). ``remat`` rematerializes the
+    encoder blocks in the backward; ``int8_ffn`` runs the encoder's FFNs and
+    the CTC projection W8A8 with the same parameter names as the float model,
+    so one checkpoint serves both.
     """
 
     def __init__(self, vocab_size, input_dim=80, d_model=256, head_num=4,
@@ -45,7 +48,8 @@ class ASRModel(nn.Module):
                  dropout_rate=0.1, attention_dropout_rate=0.0, kernel_size=15,
                  ctc_weight=0.3, ctc_impl="auto", lsm_weight=0.1,
                  use_dynamic_chunk=False, static_chunk_size=0, causal_conv=False,
-                 cmvn_mean=None, cmvn_istd=None, device="cuda"):
+                 cmvn_mean=None, cmvn_istd=None, remat=False, int8_ffn=False,
+                 device="cuda"):
         super().__init__()
         self.vocab_size = vocab_size
         self.ctc_weight = ctc_weight
@@ -58,14 +62,14 @@ class ASRModel(nn.Module):
             attention_dropout_rate=attention_dropout_rate,
             kernel_size=kernel_size, use_dynamic_chunk=use_dynamic_chunk,
             static_chunk_size=static_chunk_size, causal_conv=causal_conv,
-            cmvn_mean=cmvn_mean, cmvn_istd=cmvn_istd,
+            cmvn_mean=cmvn_mean, cmvn_istd=cmvn_istd, remat=remat, int8_ffn=int8_ffn,
         )
         self.decoder = TransformerDecoder(
             vocab_size, d_model=d_model, head_num=head_num, ffn_dim=ffn_dim,
             num_layers=num_decoder_layers, dropout_rate=dropout_rate,
             attention_dropout_rate=attention_dropout_rate,
         )
-        self.ctc_proj = nn.Linear(d_model, vocab_size)
+        self.ctc_proj = (Int8Dense if int8_ffn else nn.Linear)(d_model, vocab_size)
         self.to(resolve_device(device))
 
     @torch.no_grad()

@@ -1,8 +1,10 @@
 """Conformer encoder + Transformer decoder (port of ``mindaudio_tpu.models.conformer``).
 
 The dense path, for decoding, streaming decode (``forward_chunk``) and
-training: no MoE, sequence parallelism, pipeline, rematerialization or int8
-FFN training knobs.
+training, with the JAX module's training knobs ``remat`` (each encoder
+block's activations recomputed in the backward) and ``int8_ffn`` (both FFNs
+of every block W8A8 on the int8 tensor cores), and the conv module's
+``norm_type``; no MoE, sequence parallelism or pipeline.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .layers import (
     PositionwiseFeedForward,
     RelPositionMultiHeadedAttention,
     Swish,
+    remat_call,
     sinusoid_table,
 )
 
@@ -36,22 +39,25 @@ class ConformerEncoderLayer(nn.Module):
 
     Streaming: with ``att_cache`` (the ``(k, v)`` of the frames before this
     chunk) and ``cnn_cache`` (the conv module's left context) the layer
-    returns ``(x, new_att_cache, new_cnn_cache)``."""
+    returns ``(x, new_att_cache, new_cnn_cache)``. ``int8_ffn`` runs both
+    FFNs' forwards W8A8 (``layers.Int8Dense``)."""
 
     def __init__(self, d_model, head_num, ffn_dim, dropout_rate=0.1,
-                 attention_dropout_rate=0.0, kernel_size=15, causal_conv=False):
+                 attention_dropout_rate=0.0, kernel_size=15, causal_conv=False,
+                 norm_type="layer_norm", int8_ffn=False):
         super().__init__()
         self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
         self.feed_forward_macaron = PositionwiseFeedForward(
-            d_model, ffn_dim, dropout_rate, activation=Swish())
+            d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = RelPositionMultiHeadedAttention(
             d_model, head_num, attention_dropout_rate)
         self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.conv_module = ConvolutionModule(d_model, kernel_size, causal=causal_conv)
+        self.conv_module = ConvolutionModule(d_model, kernel_size, causal=causal_conv,
+                                             norm_type=norm_type)
         self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
         self.feed_forward = PositionwiseFeedForward(
-            d_model, ffn_dim, dropout_rate, activation=Swish())
+            d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = FastDropout(dropout_rate)
 
@@ -80,14 +86,21 @@ class ConformerEncoder(nn.Module):
     ``forward`` returns ``(encoder_out, encoder_mask)`` with
     ``encoder_mask: (B, 1, T')`` True at valid subsampled frames.
     :meth:`forward_chunk` encodes a stream chunk by chunk.
+
+    ``remat`` recomputes each block's activations in the backward of a
+    training step (``layers.remat_call``: the same dropout masks, running
+    statistics moved once), as JAX's ``nn.remat`` per block; ``int8_ffn``
+    runs every block's FFNs W8A8; ``norm_type`` is the conv module's norm.
     """
 
     def __init__(self, input_dim=80, d_model=256, head_num=4, ffn_dim=2048,
                  num_layers=12, dropout_rate=0.1, attention_dropout_rate=0.0,
                  kernel_size=15, use_dynamic_chunk=False, static_chunk_size=0,
                  causal_conv=False, cmvn_mean=None, cmvn_istd=None,
-                 use_dynamic_left_chunk=False):
+                 use_dynamic_left_chunk=False, remat=False, int8_ffn=False,
+                 norm_type="layer_norm"):
         super().__init__()
+        self.remat = remat
         self.d_model, self.head_num, self.kernel_size = d_model, head_num, kernel_size
         self.causal_conv = causal_conv
         self.use_dynamic_chunk = use_dynamic_chunk
@@ -99,7 +112,8 @@ class ConformerEncoder(nn.Module):
                                         pos_enc="rel_pos")
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, head_num, ffn_dim, dropout_rate,
-                                  attention_dropout_rate, kernel_size, causal_conv)
+                                  attention_dropout_rate, kernel_size, causal_conv,
+                                  norm_type=norm_type, int8_ffn=int8_ffn)
             for _ in range(num_layers)
         )
 
@@ -122,7 +136,10 @@ class ConformerEncoder(nn.Module):
             generator=chunk_generator)
         mask_pad = masks[:, 0, :]
         for layer in self.layers:
-            xs = layer(xs, chunk_masks, pos_emb, mask_pad)
+            if self.remat:
+                xs = remat_call(layer, xs, chunk_masks, pos_emb, mask_pad)
+            else:
+                xs = layer(xs, chunk_masks, pos_emb, mask_pad)
         return xs, masks
 
     def forward_chunk(self, xs, att_caches=None, cnn_caches=None, required_cache_size=-1):

@@ -14,14 +14,17 @@ Conventions, as in the JAX package:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import check_generator
+from ..ops.quant import int8_training_matmul
 
 __all__ = [
     "MASK_VALUE",
@@ -34,6 +37,8 @@ __all__ = [
     "BatchNorm",
     "running_stats",
     "lecun_normal_",
+    "remat_call",
+    "Int8Dense",
     "PositionwiseFeedForward",
     "MultiHeadedAttention",
     "RelPositionMultiHeadedAttention",
@@ -177,14 +182,90 @@ def running_stats(module):
             for b in (m.running_mean, m.running_var)]
 
 
+def _restoring_context(module):
+    """``context_fn`` for :func:`torch.utils.checkpoint.checkpoint` that makes
+    the recomputed forward of ``module`` the forward it stands for: the
+    recomputation starts from the generator states the forward started from
+    (so it draws the same dropout masks) and leaves behind the generators'
+    and the batch norms' states as it found them (so the stream goes on where
+    the forward left it and the running statistics move once a step).
+    ``preserve_rng_state`` restores only the default generators, not the
+    explicit ones the port's dropouts hold."""
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, FastDropout) and m.generator is not None}.values())
+    stats = running_stats(module)
+    at_forward = []
+
+    @contextlib.contextmanager
+    def forward():
+        at_forward[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        kept = [t.clone() for t in stats]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+            with torch.no_grad():
+                for t, k in zip(stats, kept):
+                    t.copy_(k)
+
+    return forward(), recompute()
+
+
+def remat_call(module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its activations rematerialized in the
+    backward (non-reentrant ``torch.utils.checkpoint``), exact as JAX's
+    ``nn.remat``: the same dropout masks and one update of the running
+    statistics (:func:`_restoring_context`). Outside training, or with
+    gradients off, a plain call."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args, **kwargs)
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: _restoring_context(module), **kwargs)
+
+
+class Int8Dense(nn.Linear):
+    """``nn.Linear`` whose forward runs W8A8 on the int8 tensor cores
+    (``mindaudio_tpu.models.layers.Int8Dense``).
+
+    The parameters are ``nn.Linear``'s, by name and ``(out, in)`` layout, so
+    a checkpoint moves between this layer and a float one unchanged, and
+    ``convert_params`` and ``ops.quant.swap_quantized`` need no rule of their
+    own. The forward quantizes both operands per call
+    (``ops.quant.int8_training_matmul``); the backward is bf16 from the
+    unquantized operands. Under autocast the input is first cast to the
+    autocast dtype, as autocast casts a Linear's; the product and its
+    epilogue run with autocast off and return the input's dtype, the bias
+    added in it.
+    """
+
+    def forward(self, x):
+        if torch.is_autocast_enabled(x.device.type):
+            x = x.to(torch.get_autocast_dtype(x.device.type))
+        y = int8_training_matmul(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
 class PositionwiseFeedForward(nn.Module):
     """Two-layer FFN applied per position (flax ``Dense_0``/``Dense_1`` are
-    ``w_1``/``w_2`` here)."""
+    ``w_1``/``w_2`` here). ``int8=True`` runs both projections' forward W8A8
+    (:class:`Int8Dense`)."""
 
-    def __init__(self, d_model, hidden_units, dropout_rate=0.1, activation=F.relu):
+    def __init__(self, d_model, hidden_units, dropout_rate=0.1, activation=F.relu,
+                 int8=False):
         super().__init__()
-        self.w_1 = nn.Linear(d_model, hidden_units)
-        self.w_2 = nn.Linear(hidden_units, d_model)
+        dense = Int8Dense if int8 else nn.Linear
+        self.w_1 = dense(d_model, hidden_units)
+        self.w_2 = dense(hidden_units, d_model)
         self.activation = activation
         self.dropout = FastDropout(dropout_rate)
 
@@ -318,7 +399,9 @@ class RelPositionalEncoding(PositionalEncoding):
 
 class ConvolutionModule(nn.Module):
     """Conformer convolution module: pointwise(2C) → GLU → depthwise(k) →
-    LayerNorm → swish → pointwise(C).
+    norm → swish → pointwise(C). The norm is a LayerNorm, or with
+    ``norm_type="batch_norm"`` flax's :class:`BatchNorm` (momentum 0.9) over
+    every frame given, padding included, as in the JAX package.
 
     The input is length-masked before ``pointwise_conv1`` and the output
     after ``pointwise_conv2``, so padding never leaks across frames. The
@@ -331,13 +414,18 @@ class ConvolutionModule(nn.Module):
     last ``k-1`` frames of the depthwise input.
     """
 
-    def __init__(self, channels, kernel_size=15, causal=False):
+    def __init__(self, channels, kernel_size=15, causal=False, norm_type="layer_norm"):
         super().__init__()
         self.pointwise_conv1 = nn.Linear(channels, 2 * channels)
         self.glu = GLU(dim=-1)
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
                                         groups=channels)
-        self.norm = nn.LayerNorm(channels, eps=LN_EPS)
+        if norm_type == "batch_norm":
+            self.norm = BatchNorm(channels, momentum=0.9)
+        elif norm_type == "layer_norm":
+            self.norm = nn.LayerNorm(channels, eps=LN_EPS)
+        else:
+            raise ValueError(f"unknown norm_type {norm_type!r}")
         self.pointwise_conv2 = nn.Linear(channels, channels)
         self.kernel_size, self.causal = kernel_size, causal
         half = (kernel_size - 1) // 2

@@ -1,9 +1,9 @@
 """Static DSP design math (NumPy), copied from ``mindaudio_tpu.ops.filterbanks``.
 
 The port keeps its own copy so that it imports nothing of the JAX package;
-``tests/test_torch_frontend.py`` and ``tests/test_torch_ecapa.py`` pin these
-functions to the originals bit for bit. Everything here runs once at
-set-up and returns ``np.ndarray``s.
+``tests/test_torch_frontend.py``, ``tests/test_torch_ecapa.py`` and
+``tests/test_torch_dsp.py`` pin these functions to the originals bit for
+bit. Everything here runs once at set-up and returns ``np.ndarray``s.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 from scipy.signal import get_window as _scipy_get_window
 
-__all__ = ["hz_to_mel", "mel_to_hz", "mel_frequencies", "kaldi_mel_banks", "melscale_fbanks",
-           "get_window", "povey_window"]
+__all__ = ["hz_to_mel", "mel_to_hz", "mel_frequencies", "mel", "kaldi_mel_banks",
+           "melscale_fbanks", "create_dct", "get_window", "povey_window"]
 
 
 def hz_to_mel(frequencies, htk=False):
@@ -61,6 +61,33 @@ def mel_frequencies(n_mels=128, fmin=0.0, fmax=11025.0, htk=False):
     return mel_to_hz(np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels), htk=htk)
 
 
+def mel(sr, n_fft, n_mels=128, fmin=0.0, fmax=None, htk=False, norm="slaney", dtype=np.float32):
+    """librosa-convention mel filterbank, shape ``(n_mels, 1 + n_fft // 2)``.
+
+    Triangular filters between successive mel-spaced frequencies; ``norm="slaney"``
+    area-normalizes each triangle. Parity: reference filters.py:426.
+    """
+    if fmax is None:
+        fmax = float(sr) / 2
+    n_freqs = 1 + n_fft // 2
+    fftfreqs = np.linspace(0, float(sr) / 2, n_freqs)
+    mel_f = mel_frequencies(n_mels + 2, fmin=fmin, fmax=fmax, htk=htk)
+
+    fdiff = np.diff(mel_f)
+    ramps = mel_f.reshape(-1, 1) - fftfreqs.reshape(1, -1)
+
+    lower = -ramps[:-2] / fdiff[:-1].reshape(-1, 1)
+    upper = ramps[2:] / fdiff[1:].reshape(-1, 1)
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+
+    if norm == "slaney":
+        enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
+        weights *= enorm.reshape(-1, 1)
+    elif norm is not None and norm != "none":
+        raise ValueError(f"Unsupported norm={norm!r}")
+    return weights.astype(dtype)
+
+
 def kaldi_mel_banks(num_bins, n_fft, sample_rate, low_freq=20.0, high_freq=None,
                     dtype=np.float32):
     """Kaldi-convention mel filterbank, shape ``(n_fft // 2 + 1, num_bins)``.
@@ -104,6 +131,25 @@ def melscale_fbanks(n_freqs, f_min, f_max, n_mels, sample_rate, norm=None, mel_s
     elif norm is not None and norm != "none":
         raise ValueError(f"Unsupported norm={norm!r}")
     return fb.astype(dtype)
+
+
+def create_dct(n_mfcc, n_mels, norm=None, dtype=np.float32):
+    """DCT-II matrix of shape ``(n_mels, n_mfcc)`` (torchaudio ``create_dct``).
+
+    ``norm="ortho"`` applies the orthonormal scaling. Used by features.mfcc
+    (parity: reference features.py:337).
+    """
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64).reshape(-1, 1)
+    dct = np.cos(np.pi / n_mels * (n + 0.5) * k)  # (n_mfcc, n_mels)
+    if norm is None or norm == "none":
+        dct *= 2.0
+    else:
+        if norm != "ortho":
+            raise ValueError(f"Unsupported DCT norm={norm!r}")
+        dct[0] *= 1.0 / np.sqrt(2.0)
+        dct *= np.sqrt(2.0 / n_mels)
+    return dct.T.astype(dtype)
 
 
 def get_window(window, win_length, fftbins=True):

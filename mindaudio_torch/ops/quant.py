@@ -11,6 +11,12 @@ Use::
 
 or, for a whole model, :func:`quantize_dense_params` then
 :func:`swap_quantized`.
+
+W8A8 training (:func:`int8_training_matmul`, used by ``models.layers
+.Int8Dense``) quantizes both operands on the fly and multiplies them on the
+int8 tensor cores through ``torch._int_mm`` (cuBLASLt): the JAX package runs
+that product as an XLA ``dot_general`` with an int32 result, outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from . import _build
+from .spectral import precision_scope
 
 __all__ = [
     "quantize_int8",
@@ -32,6 +39,13 @@ __all__ = [
     "pad_int8_rows",
     "Int8Linear",
     "swap_quantized",
+    "int8_mm",
+    "int8_mm_reference",
+    "int_mm_operands",
+    "int8_dynamic_matmul",
+    "w8a8_operands",
+    "w8a8_apply",
+    "int8_training_matmul",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -273,3 +287,151 @@ def swap_quantized(model, tables):
         setattr(parent, attr, Int8Linear(values.to(old.weight.device),
                                          scales.to(old.weight.device), old.bias))
     return model
+
+
+def int8_mm_reference(a, b):
+    """Plain version of :func:`int8_mm`: ``(M, K) @ (K, N)`` int8 operands
+    multiplied exactly in int32 on the tensors' device."""
+    return a.to(torch.int32) @ b.to(torch.int32)
+
+
+# torch._int_mm's shape rules on CUDA: more than 16 rows, K and N multiples of 8
+_INT_MM_MIN_M, _INT_MM_ALIGN = 17, 8
+
+
+def int_mm_operands(a, b):
+    """``a`` (M, K) and ``b`` (K, N) padded with zeros to the shapes that
+    ``torch._int_mm`` takes on CUDA (M > 16, K and N multiples of 8); the
+    product's ``[:M, :N]`` is unchanged. ``a`` comes back row-major and
+    ``b`` column-major (the transposed view of an (N, K) tensor), the layout
+    cuBLASLt's int8 GEMM reads; either is copied only where it is not so
+    already."""
+    (m, k), n = a.shape, b.shape[1]
+    a = a.contiguous()
+    if b.stride(0) != 1 or b.stride(1) != max(k, 1):
+        b = b.t().contiguous().t()
+    mp = max(m, _INT_MM_MIN_M)
+    kp, np_ = (-(-d // _INT_MM_ALIGN) * _INT_MM_ALIGN for d in (k, n))
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = torch.nn.functional.pad(b.t(), (0, kp - k, 0, np_ - n)).t()
+    return a, b
+
+
+def int8_mm(a, b):
+    """``(M, K) @ (K, N)`` of int8 operands with an exact int32 result.
+
+    A CUDA tensor goes through ``torch._int_mm`` (cuBLASLt's int8
+    tensor-core GEMM), counted in ``int8_mm.launches``, on operands padded
+    by :func:`int_mm_operands` and sliced back, so that no shape leaves the
+    int8 path. ``b`` is best the transposed view of an ``(N, K)`` contiguous
+    tensor, which is taken without a copy. A CPU tensor takes the plain
+    version.
+    """
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2:
+        raise TypeError("int8_mm: a and b must be 2-D int8 tensors")
+    m, n = a.shape[0], b.shape[1]
+    if b.shape[0] != a.shape[1]:
+        raise ValueError(f"int8_mm: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return int8_mm_reference(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"int8_mm: unsupported device {a.device}")
+    out = torch._int_mm(*int_mm_operands(a, b))
+    int8_mm.launches += 1
+    return out[:m, :n]
+
+
+int8_mm.launches = 0
+
+
+def _quantize_rows(xf, scale):
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+
+
+def int8_dynamic_matmul(x, values, scales):
+    """W8A8 serving product: ``x`` quantized per row on the fly, times int8
+    ``values`` (K, N) with per-output-channel ``scales`` (N,), int32
+    accumulation, then the ``(sx ⊗ sw)`` epilogue; ``(..., N)`` in ``x``'s
+    dtype (``mindaudio_tpu.ops.quant.int8_dynamic_matmul``, its arithmetic:
+    ``max / 127.0``)."""
+    k = x.shape[-1]
+    with torch.autocast(x.device.type, enabled=False):
+        x2 = x.reshape(-1, k).to(torch.float32)
+        sx = torch.clamp_min(x2.abs().amax(dim=1, keepdim=True), 1e-12) / 127.0
+        acc = int8_mm(_quantize_rows(x2, sx), values)
+        y = acc.to(torch.float32) * sx * scales[None, :].to(torch.float32)
+    return y.reshape(*x.shape[:-1], values.shape[1]).to(x.dtype)
+
+
+def w8a8_operands(x2, weight):
+    """The int8 operands and scales of :func:`w8a8_apply`: ``(xq (M, K),
+    sx (M, 1), wq (N, K), sw (N,))``. Per-row activation scales and
+    per-output-channel weight scales are taken fresh from the live values,
+    ``max * (1 / 127.0)`` in float32 as the JAX package computes them."""
+    xf = x2.to(torch.float32)
+    sx = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True), 1e-12) * (1 / 127.0)
+    wf = weight.to(torch.float32)
+    sw = torch.clamp_min(wf.abs().amax(dim=1), 1e-12) * (1 / 127.0)
+    return _quantize_rows(xf, sx), sx, _quantize_rows(wf, sw[:, None]), sw
+
+
+def w8a8_apply(x2, weight):
+    """``(M, K) @ weight.T`` through the int8 tensor cores with fresh dynamic
+    scales, float32 out (``mindaudio_tpu.ops.quant._w8a8_apply``). ``weight``
+    is ``nn.Linear``'s ``(N, K)`` (the JAX kernel's ``(K, N)`` transposed),
+    so the per-output-channel maximum runs along its rows."""
+    xq, sx, wq, sw = w8a8_operands(x2, weight)
+    return int8_mm(xq, wq.t()).to(torch.float32) * sx * sw
+
+
+class _Int8TrainingMatmul(torch.autograd.Function):
+    """W8A8 forward, straight-through bf16 backward; autocast stays off
+    inside both so that the quantization and the epilogue run as written."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        with torch.autocast(x.device.type, enabled=False):
+            y = w8a8_apply(x.reshape(-1, x.shape[-1]), weight)
+            int8_training_matmul.fwd_launches += 1
+        return y.reshape(*x.shape[:-1], weight.shape[0]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        k = x.shape[-1]
+        with torch.autocast(g.device.type, enabled=False), precision_scope("high"):
+            # bf16-rounded operands multiplied in float32: every product of
+            # two bf16 values is exact in float32 and in TF32 (whose 10-bit
+            # mantissa holds bf16's 7), so this is JAX's bf16 dot_general
+            # with a float32 result, unrounded, on the card's tensor cores
+            g2 = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).to(torch.float32)
+            x2 = x.reshape(-1, k).to(torch.bfloat16).to(torch.float32)
+            wb = weight.to(torch.bfloat16).to(torch.float32)
+            dx = (g2 @ wb).reshape(x.shape).to(x.dtype)
+            dw = (g2.t() @ x2).to(weight.dtype)
+            int8_training_matmul.bwd_launches += 2
+        return dx, dw
+
+
+def int8_training_matmul(x, weight):
+    """``x @ weight.T`` with a W8A8 int8 forward and a bf16 backward
+    (``mindaudio_tpu.ops.quant.int8_training_matmul``).
+
+    Forward: per-row activation scales, per-output-channel scales taken from
+    the live float ``weight`` (``(N, K)``, ``nn.Linear``'s layout), int8 x
+    int8 → int32 (:func:`int8_mm`), then the ``(sx ⊗ sw)`` epilogue; the
+    result takes ``x``'s dtype. Backward (straight-through): ``dx = g @ w``
+    and ``dw = gᵀ @ x`` from the *unquantized* saved operands rounded to
+    bf16, float32 accumulation, float32 result. Counted per call:
+    ``int8_training_matmul.fwd_launches`` (one int8 product each forward,
+    recomputed forwards included) and ``.bwd_launches`` (two products each
+    backward).
+    """
+    return _Int8TrainingMatmul.apply(x, weight)
+
+
+int8_training_matmul.fwd_launches = 0
+int8_training_matmul.bwd_launches = 0

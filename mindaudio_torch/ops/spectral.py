@@ -1,19 +1,28 @@
 """Spectral front-ends on the device (port of ``mindaudio_tpu.ops.spectral``):
-the Kaldi log-mel fbank, the STFT, the magnitude/power spectrogram, the mel
-spectrogram and the dB log-mel ``fbank`` (ECAPA-TDNN's front end) with its
-deltas and context window; and ``overlap_and_add``, the inverse of
-framing, on which the separation models rebuild their waveforms.
+the Kaldi log-mel fbank, the STFT and its inverse, the magnitude/power
+spectrogram, the mel spectrogram, the dB log-mel ``fbank`` (ECAPA-TDNN's
+front end) with its deltas and context window, MFCCs, global and
+sliding-window CMN; and ``overlap_and_add``, the inverse of framing, on
+which the separation models and ``istft`` rebuild their waveforms.
 
 The DFT is a matmul against a cached cos/sin basis, as in the JAX package:
 at n_fft = 512 two ``(frames, 512) @ (512, 257)`` products are cheaper to
 reason about than an FFT and keep the whole front-end in a few large
-operations. Float32 throughout; on the card the caller must keep TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default) —
-the DFT of ×32768-scaled samples is sensitive to it.
+operations. Float32 throughout, except that a float64 input is computed in
+float64 (the CPU's reference for the card's results; the constant matrices
+are the float32 ones, upcast).
+
+Precision: the DFT of ×32768-scaled samples is sensitive to TF32. Every op
+with matrix products here takes ``precision=`` ("highest": float32, TF32
+off; "high" or "default": TF32 on the card), defaulting to the module's
+level (:func:`set_precision`, "highest" as in the JAX package). The level
+holds for the op's own products only: the TF32 switches are set for the
+call and restored after it, so no process-wide flag changes behind it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -21,12 +30,65 @@ import numpy as np
 import torch
 
 from .. import check_generator, resolve_device
-from .filterbanks import get_window, kaldi_mel_banks, melscale_fbanks
+from .filterbanks import create_dct, get_window, kaldi_mel_banks, melscale_fbanks
 
-__all__ = ["frame_signal", "stft", "spectrogram", "melscale", "melspectrogram",
-           "amplitude_to_db", "fbank", "compute_deltas", "kaldi_fbank", "overlap_and_add"]
+__all__ = ["set_precision", "precision_scope", "frame_signal", "stft", "istft", "spectrogram",
+           "melscale", "melspectrogram", "amplitude_to_db", "fbank", "mfcc", "compute_deltas",
+           "kaldi_fbank", "overlap_and_add", "global_cmvn", "sliding_window_cmn"]
+
+_PRECISION_LEVELS = ("default", "high", "highest")
+_PRECISION = "highest"
+
+
+def set_precision(level):
+    """Set the module's default precision of the DFT and mel products:
+    "default" | "high" | "highest". Takes effect on the next call of any op
+    here; each op also takes ``precision=`` for one call."""
+    global _PRECISION
+    _PRECISION = _resolve_precision(level)
+
+
+def _resolve_precision(precision):
+    if precision is None:
+        return _PRECISION
+    if precision not in _PRECISION_LEVELS:
+        raise ValueError(f"unknown precision {precision!r}; one of {_PRECISION_LEVELS}")
+    return precision
+
+
+@contextlib.contextmanager
+def precision_scope(precision):
+    """The TF32 switches of the float32 matrix products and cuDNN's
+    convolutions set for ``precision`` ("highest": off; otherwise on) inside,
+    and restored to what they were after."""
+    tf32 = _resolve_precision(precision) != "highest"
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def _precision_aware(fn):
+    """Resolve ``precision`` at call time, pass the level on (to the ops the
+    function calls) and run the call in its :func:`precision_scope`."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, precision=None, **kwargs):
+        level = _resolve_precision(precision)
+        with precision_scope(level):
+            return fn(*args, precision=level, **kwargs)
+
+    return wrapper
+
 
 LOG_FLOOR = 1.1920928955078125e-07  # float32 machine epsilon, as kaldi
+
+
+def _compute_dtype(t):
+    """float64 for a float64 tensor, float32 for any other."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 @functools.lru_cache(maxsize=16)
@@ -77,16 +139,17 @@ def _pad_signal(x, n_fft, center, pad_mode):
 
 def _windowed_dft(waveforms, n_fft, win_length, hop_length, window, center, pad_mode):
     """``(real, imag)`` of the framed, windowed DFT, each ``(..., n_frames, n_freq)``."""
-    x = waveforms.to(torch.float32)
+    x = waveforms.to(_compute_dtype(waveforms))
     n_frames = _num_frames(x.shape[-1], n_fft, hop_length, center)
     frames = frame_signal(_pad_signal(x, n_fft, center, pad_mode), n_fft, hop_length, n_frames)
-    wr, wi = (torch.as_tensor(m, device=x.device)
+    wr, wi = (torch.as_tensor(m, device=x.device, dtype=x.dtype)
               for m in dft_matrices(n_fft, win_length, window, hop_length))
     return frames @ wr, frames @ wi
 
 
+@_precision_aware
 def stft(waveforms, n_fft=512, win_length=None, hop_length=None, window="hann", center=True,
-         pad_mode="constant", device="cuda"):
+         pad_mode="constant", device="cuda", precision=None):
     """STFT of ``(..., T)`` as ``(..., n_freq, n_frames, 2)`` (real, imag),
     librosa conventions (``mindaudio_tpu.ops.spectral.stft``). A tensor
     input is moved to ``device``."""
@@ -111,8 +174,10 @@ def _power_frames(waveforms, n_fft, win_length, hop_length, window, center, pad_
     return torch.pow(torch.clamp_min(p, 1e-30), power / 2.0)
 
 
+@_precision_aware
 def spectrogram(waveforms, n_fft=400, win_length=None, hop_length=None, pad=0, window="hann",
-                power=2.0, normalized=False, center=True, pad_mode="reflect", device="cuda"):
+                power=2.0, normalized=False, center=True, pad_mode="reflect", device="cuda",
+                precision=None):
     """torchaudio-convention spectrogram ``(..., n_freq, n_frames)``
     (``mindaudio_tpu.ops.spectral.spectrogram``). A tensor input is moved to
     ``device``."""
@@ -128,26 +193,30 @@ def spectrogram(waveforms, n_fft=400, win_length=None, hop_length=None, pad=0, w
     return p.transpose(-1, -2)
 
 
-def _mel_matrix(n_freqs, n_mels, sample_rate, f_min, f_max, norm, mel_scale, device):
+def _mel_matrix(n_freqs, n_mels, sample_rate, f_min, f_max, norm, mel_scale, like):
     f_max = f_max if f_max is not None else sample_rate // 2
     fb = melscale_fbanks(n_freqs, f_min, f_max, n_mels, sample_rate, norm=norm,
                          mel_scale=mel_scale)
-    return torch.as_tensor(fb, device=device)
+    return torch.as_tensor(fb, device=like.device, dtype=like.dtype)
 
 
+@_precision_aware
 def melscale(spec, n_mels=128, sample_rate=16000, f_min=0.0, f_max=None, n_stft=201, norm=None,
-             mel_type="htk", device="cuda"):
+             mel_type="htk", device="cuda", precision=None):
     """Project ``(..., n_freq, time)`` onto ``(..., n_mels, time)``
     (``mindaudio_tpu.ops.spectral.melscale``). A tensor input is moved to
     ``device``."""
-    x = torch.as_tensor(spec, device=resolve_device(device)).to(torch.float32)
-    fb = _mel_matrix(n_stft, n_mels, sample_rate, f_min, f_max, norm, mel_type, x.device)
+    x = torch.as_tensor(spec, device=resolve_device(device))
+    x = x.to(_compute_dtype(x))
+    fb = _mel_matrix(n_stft, n_mels, sample_rate, f_min, f_max, norm, mel_type, x)
     return (x.transpose(-1, -2) @ fb).transpose(-1, -2)
 
 
+@_precision_aware
 def melspectrogram(waveforms, n_fft=400, win_length=None, hop_length=None, window="hann",
                    power=2.0, center=True, pad_mode="reflect", n_mels=128, sample_rate=16000,
-                   f_min=0.0, f_max=None, norm=None, mel_type="htk", device="cuda"):
+                   f_min=0.0, f_max=None, norm=None, mel_type="htk", device="cuda",
+                   precision=None):
     """Mel spectrogram ``(..., n_mels, n_frames)``: framing, the windowed DFT
     and the mel projection as float32 matrix products
     (``mindaudio_tpu.ops.spectral.melspectrogram``). A tensor input is moved
@@ -156,8 +225,7 @@ def melspectrogram(waveforms, n_fft=400, win_length=None, hop_length=None, windo
     hop_length = hop_length or win_length // 2
     x = torch.as_tensor(waveforms, device=resolve_device(device))
     p = _power_frames(x, n_fft, win_length, hop_length, window, center, pad_mode, power)
-    fb = _mel_matrix(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max, norm, mel_type,
-                     x.device)
+    fb = _mel_matrix(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max, norm, mel_type, p)
     return (p @ fb).transpose(-1, -2)
 
 
@@ -206,9 +274,10 @@ def _context_window(x, left_frames, right_frames):
     return cols.reshape(x.shape[:-2] + (-1, t))
 
 
+@_precision_aware
 def fbank(waveforms, deltas=False, context=False, n_mels=40, n_fft=400, sample_rate=16000,
           f_min=0.0, f_max=None, left_frames=5, right_frames=5, win_length=None,
-          hop_length=None, window="hann", device="cuda"):
+          hop_length=None, window="hann", device="cuda", precision=None):
     """dB log-mel filterbank features ``(..., n_mels, n_frames)``
     (``mindaudio_tpu.ops.spectral.fbank``): :func:`melspectrogram` (power 2,
     centred, reflect padding, HTK mels) then :func:`amplitude_to_db` with its
@@ -218,7 +287,7 @@ def fbank(waveforms, deltas=False, context=False, n_mels=40, n_fft=400, sample_r
     kernel. A tensor input is moved to ``device``."""
     mel = melspectrogram(waveforms, n_fft=n_fft, win_length=win_length, hop_length=hop_length,
                          window=window, n_mels=n_mels, sample_rate=sample_rate, f_min=f_min,
-                         f_max=f_max, device=device)
+                         f_max=f_max, device=device, precision=precision)
     out = amplitude_to_db(mel)
     if deltas:
         d1 = compute_deltas(out)
@@ -264,6 +333,7 @@ def overlap_and_add(signal, frame_step):
     return out.reshape(lead + (output_size,))
 
 
+@_precision_aware
 def kaldi_fbank(
     waveforms,
     num_mel_bins=80,
@@ -276,6 +346,7 @@ def kaldi_fbank(
     window="povey",
     generator=None,
     device="cuda",
+    precision=None,
 ):
     """Kaldi-convention log-mel fbank: snip-edges framing, povey window,
     pre-emphasis, natural-log mel (``mindaudio_tpu.ops.spectral.kaldi_fbank``).
@@ -289,6 +360,7 @@ def kaldi_fbank(
             generator must live on ``device``: noise drawn elsewhere would
             be copied through the host inside every step.
         device: where to compute; a tensor input is moved there.
+        precision: the products' precision (see the module docstring).
 
     Returns:
         ``(..., n_frames, num_mel_bins)`` float32, time-major.
@@ -328,3 +400,126 @@ def kaldi_fbank(
                          device=device)
     mel = power @ fb
     return torch.log(torch.clamp_min(mel, LOG_FLOOR))
+
+
+@_precision_aware
+def mfcc(waveforms, deltas=True, context=True, n_mels=23, n_mfcc=20, n_fft=400,
+         sample_rate=16000, f_min=0.0, f_max=None, left_frames=5, right_frames=5,
+         win_length=None, hop_length=None, norm="ortho", log_mels=False, device="cuda",
+         precision=None):
+    """MFCCs ``(..., n_mfcc [* 3] [* ctx], n_frames)``
+    (``mindaudio_tpu.ops.spectral.mfcc``): :func:`melspectrogram` (hann,
+    power 2), its dB (:func:`amplitude_to_db`) or ``log(mel + 1e-6)`` with
+    ``log_mels``, the DCT-II product (``filterbanks.create_dct``), then the
+    deltas and the context window. A tensor input is moved to ``device``."""
+    mel = melspectrogram(waveforms, n_fft=n_fft, win_length=win_length, hop_length=hop_length,
+                         n_mels=n_mels, sample_rate=sample_rate, f_min=f_min, f_max=f_max,
+                         device=device, precision=precision)
+    mel = torch.log(mel + 1e-6) if log_mels else amplitude_to_db(mel)
+    dct = torch.as_tensor(create_dct(n_mfcc=n_mfcc, n_mels=n_mels, norm=norm),
+                          device=mel.device, dtype=mel.dtype)
+    out = (mel.transpose(-1, -2) @ dct).transpose(-1, -2)
+    if deltas:
+        d1 = compute_deltas(out)
+        out = torch.cat((out, d1, compute_deltas(d1)), dim=-2)
+    if context:
+        out = _context_window(out, left_frames, right_frames)
+    return out
+
+
+def global_cmvn(x, mean, istd):
+    """Global cepstral mean and variance normalization, ``(x - mean) * istd``
+    (``mindaudio_tpu.ops.spectral.global_cmvn``)."""
+    return (x - mean) * istd
+
+
+def sliding_window_cmn(x, cmn_window=600, min_cmn_window=100, center=False,
+                       norm_vars=False):
+    """Kaldi's sliding-window CMN over the time axis of ``(..., T, F)``, in
+    O(T) through prefix sums (``mindaudio_tpu.ops.spectral
+    .sliding_window_cmn``, the same window edges): frame ``t`` loses the
+    mean of its window (and with ``norm_vars`` is divided by the window's
+    standard deviation), computed in float32 (float64 for a float64 ``x``);
+    the result takes ``x``'s dtype."""
+    xf = x.to(_compute_dtype(x))
+    t_len = xf.shape[-2]
+    t_idx = torch.arange(t_len, device=x.device)
+    if center:
+        ws = t_idx - cmn_window // 2
+        we = ws + cmn_window
+        ws_c = torch.clamp_min(ws, 0)
+        we_c = torch.where(ws < 0, we - ws, we)
+    else:
+        ws = t_idx - cmn_window
+        ws_c = torch.clamp_min(ws, 0)
+        we_c = torch.clamp_min(t_idx + 1, min(min_cmn_window, t_len))
+    over = torch.clamp_min(we_c - t_len, 0)
+    we_c = we_c - over
+    ws_c = torch.clamp_min(ws_c - over, 0)
+
+    def window_sums(v):
+        cs = torch.cumsum(v, dim=-2)
+        cs = torch.cat([torch.zeros_like(cs[..., :1, :]), cs], dim=-2)
+        return cs.index_select(-2, we_c) - cs.index_select(-2, ws_c)
+
+    count = (we_c - ws_c).to(xf.dtype)[:, None]
+    mean = window_sums(xf) / count
+    out = xf - mean
+    if norm_vars:
+        var = window_sums(xf**2) / count - mean**2
+        out = out / torch.sqrt(torch.clamp_min(var, 1e-10))
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _inverse_dft(n_fft, n_freq):
+    """The inverse rDFT as two ``(n_freq, n_fft)`` float32 numpy matrices,
+    interior bins weighted twice (the Hermitian half left out)."""
+    ang = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(n_freq)[None, :] / n_fft
+    w = np.full(n_freq, 2.0)
+    w[0] = 1.0
+    if n_fft % 2 == 0:
+        w[-1] = 1.0
+    cr = (np.cos(ang) * w / n_fft).astype(np.float32)
+    ci = (-np.sin(ang) * w / n_fft).astype(np.float32)
+    return np.ascontiguousarray(cr.T), np.ascontiguousarray(ci.T)
+
+
+@_precision_aware
+def istft(stft_ri, n_fft=None, win_length=None, hop_length=None, window="hann", center=True,
+          length=None, device="cuda", precision=None):
+    """Inverse STFT of the ``(..., n_freq, n_frames, 2)`` real/imag stack that
+    :func:`stft` gives (``mindaudio_tpu.ops.spectral.istft``): the inverse
+    DFT as two float32 products, the window, :func:`overlap_and_add`, the
+    window-sum-square normalization, and the centre trim (both ends when
+    ``length`` is None). A tensor input is moved to ``device``."""
+    x = torch.as_tensor(stft_ri, device=resolve_device(device))
+    x = x.to(_compute_dtype(x))
+    n_freq = x.shape[-3]
+    if n_fft is None:
+        n_fft = 2 * (n_freq - 1)
+    win_length = win_length or n_fft
+    hop_length = hop_length or win_length // 4
+    cr, ci = (torch.as_tensor(m, device=x.device, dtype=x.dtype)
+              for m in _inverse_dft(n_fft, n_freq))
+    frames = x[..., 0].transpose(-1, -2) @ cr + x[..., 1].transpose(-1, -2) @ ci
+
+    win = np.zeros(n_fft, np.float32)
+    lpad = (n_fft - win_length) // 2
+    win[lpad: lpad + win_length] = get_window(window, win_length, fftbins=True)
+    frames = frames * torch.as_tensor(win, device=x.device, dtype=x.dtype)
+    y = overlap_and_add(frames, hop_length)
+    n_frames = frames.shape[-2]
+    wss = overlap_and_add(torch.as_tensor(win**2, device=x.device, dtype=x.dtype)
+                          .expand(n_frames, n_fft), hop_length)
+    y = y / torch.clamp_min(wss, 1e-10)
+
+    if center:
+        y = y[..., n_fft // 2:]
+        if length is None:
+            y = y[..., : y.shape[-1] - n_fft // 2]
+    if length is not None:
+        y = y[..., :length]
+        if length > y.shape[-1]:
+            y = torch.nn.functional.pad(y, (0, length - y.shape[-1]))
+    return y

@@ -61,8 +61,6 @@ def check_supported(cfg, training=True):
     naming where the ROADMAP tracks it: nothing else is run in its place."""
     dist = torch.distributed
     unsupported = {
-        "model.remat": (bool(cfg.model.get("remat", False)), "queue 1 item 5"),
-        "model.int8_ffn": (bool(cfg.model.get("int8_ffn", False)), "queue 1 item 5"),
         "model.moe_experts > 0": (int(cfg.model.get("moe_experts", 0)) > 0, "queue 1 item 8"),
     }
     if training:
@@ -115,6 +113,8 @@ def build_model(cfg, vocab_size, device, training=True):
         lsm_weight=cfg.model.lsm_weight,
         use_dynamic_chunk=bool(cfg.model.get("use_dynamic_chunk", False)),
         causal_conv=bool(cfg.model.get("causal_conv", False)),
+        remat=bool(cfg.model.get("remat", False)),
+        int8_ffn=bool(cfg.model.get("int8_ffn", False)),
         cmvn_mean=cmvn_mean,
         cmvn_istd=cmvn_istd,
         device=device,
@@ -207,11 +207,12 @@ def restore_state(ckpt, model, optimizer, generators):
 
 def main(argv=None):
     """Train as the config says. Returns ``{"start_step", "first_lr", "steps",
-    "final_step", "window_ms", "dev_losses"}``: the global step it started
-    from and the learning rate of its first step, the steps it took, ms per
-    step of each log window (host clock over the ``log_every_steps`` steps
-    before a log, which ends in the metrics' read-back, with no eval or save
-    inside) and ``{global step: dev loss}`` of its evaluations."""
+    "final_step", "window_ms", "dev_losses", "losses"}``: the global step it
+    started from and the learning rate of its first step, the steps it took,
+    ms per step of each log window (host clock over the ``log_every_steps``
+    steps before a log, which ends in the metrics' read-back, with no eval or
+    save inside), ``{global step: dev loss}`` of its evaluations and the
+    train loss of each logged step."""
     cfg, device = parse_args(argv)
     logger = get_logger("conformer_torch")
     tokenizer = build_tokenizer(cfg)
@@ -261,7 +262,7 @@ def main(argv=None):
                         speed_perturb=bool(cfg.data.speed_perturb), **loader)
 
     first_lr = float(optimizer.lr(optimizer.count))
-    step_count, dev_losses, window_ms = 0, {}, []
+    step_count, dev_losses, window_ms, losses = 0, {}, [], []
     metrics = step_fn(to_device.ready(to_device(next(it))[2]))
     step_count += 1
     window = (time.perf_counter(), step_count)
@@ -271,6 +272,7 @@ def main(argv=None):
         gstep = start_step + step_count
         if step_count % log_every == 0:  # the only reads of a step's metrics
             m = {k: float(v) for k, v in metrics.items()}
+            losses.append(m["loss"])
             if step_count - window[1] == log_every:
                 window_ms.append(1e3 * (time.perf_counter() - window[0]) / log_every)
             logger.info("epoch %d step %d bucket %d loss %.4f (att %.4f ctc %.4f acc %.3f) "
@@ -290,7 +292,8 @@ def main(argv=None):
     ckpt.save(checkpoint_state(model, optimizer, generators, final), final)
     logger.info("done: %d steps (global %d)", step_count, final)
     return {"start_step": start_step, "first_lr": first_lr, "steps": step_count,
-            "final_step": final, "window_ms": window_ms, "dev_losses": dev_losses}
+            "final_step": final, "window_ms": window_ms, "dev_losses": dev_losses,
+            "losses": losses}
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ only the parameters themselves, which the model owns, are updated through
   the incremented count;
 - ``eps`` is added outside the square root;
 - the weight decay is decoupled and applies to every parameter (biases and
-  LayerNorm too): ``p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
+  LayerNorm too), or with ``decay=`` to the parameters it names (optax's
+  ``mask``; ``utils.common.set_weight_decay`` gives the JAX package's):
+  ``p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
 - a schedule is read at the count before the increment.
 
 The step count and the learning rate live on the device, and
@@ -40,13 +42,21 @@ class AdamW:
         lr: a float, or a schedule ``step tensor -> lr tensor``.
         mu_dtype: dtype of the stored first moment (the recipe's default is
             bf16; ``None`` keeps float32).
+        decay: names of the parameters the weight decay applies to (``None``:
+            all of them).
     """
 
     def __init__(self, named_params, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4,
-                 mu_dtype=None):
+                 mu_dtype=None, decay=None):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        if decay is not None:
+            unknown = set(decay) - set(self.names)
+            if unknown:
+                raise KeyError(f"AdamW: decay names no parameter: {sorted(unknown)[:8]}")
+            decay = set(decay)
+        self._decayed = [i for i, n in enumerate(self.names) if decay is None or n in decay]
         self.lr, self.b1, self.b2, self.eps, self.weight_decay = lr, b1, b2, eps, weight_decay
         device = self.params[0].device
         self.count = torch.zeros((), dtype=torch.int32, device=device)
@@ -100,7 +110,9 @@ class AdamW:
         correction2 = 1.0 - torch.pow(self._b2[0], count)
         update = self._views(m.div_(correction1).div_(
             (self._nu / correction2).sqrt_().add_(self.eps)))
-        torch._foreach_add_(update, torch._foreach_mul(self.params, self.weight_decay))
+        if self._decayed:
+            torch._foreach_add_([update[i] for i in self._decayed], torch._foreach_mul(
+                [self.params[i] for i in self._decayed], self.weight_decay))
         torch._foreach_sub_(self.params, torch._foreach_mul(update, lr))
 
     def state_dict(self):

@@ -1,17 +1,26 @@
-"""Host-side batch-assembly helpers (port of ``mindaudio_tpu.utils.common``)."""
+"""Host-side batch-assembly helpers and model utilities (port of
+``mindaudio_tpu.utils.common``)."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+from torch.nn import functional as F
 
 __all__ = [
     "IGNORE_ID",
     "pad_sequence",
     "add_sos_eos",
+    "add_blank",
     "remove_duplicates_and_blank",
     "log_add",
+    "get_parameter_numel",
+    "get_activation",
+    "get_subsample",
+    "get_feat_extract_output_lengths",
+    "set_weight_decay",
 ]
 
 IGNORE_ID = -1
@@ -46,6 +55,16 @@ def add_sos_eos(ys_pad, sos, eos, ignore_id=IGNORE_ID):
     return ys_in, ys_out
 
 
+def add_blank(ys_pad, blank, ignore_id=IGNORE_ID):
+    """Interleave CTC blanks: ``y -> blank y1 blank y2 ... blank``; the
+    ``ignore_id`` padding becomes ``blank`` too."""
+    ys_pad = np.asarray(ys_pad)
+    b, length = ys_pad.shape
+    out = np.full((b, 2 * length + 1), blank, dtype=ys_pad.dtype)
+    out[:, 1::2] = np.where(ys_pad == ignore_id, blank, ys_pad)
+    return out
+
+
 def remove_duplicates_and_blank(hyp, blank_id=0):
     """Collapse repeats then drop blanks (CTC greedy post-process)."""
     out = []
@@ -63,3 +82,54 @@ def log_add(args):
         return -float("inf")
     a_max = max(args)
     return a_max + math.log(sum(math.exp(a - a_max) for a in args))
+
+
+def get_parameter_numel(params):
+    """Total number of parameters of a module (its ``parameters()``) or of a
+    state dict / any mapping of tensors and arrays."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(int(np.prod(np.shape(v))) for v in params.values())
+
+
+def get_activation(act):
+    """Activation function by name: ``tanh``, ``relu``, ``swish`` (SiLU) or
+    ``gelu`` (its tanh approximation, ``jax.nn.gelu``'s default)."""
+    funcs = {
+        "tanh": torch.tanh,
+        "relu": F.relu,
+        "swish": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    }
+    return funcs[act]
+
+
+def get_subsample(config):
+    """Subsampling factor of an encoder config dict: ``conv2d`` → 4,
+    ``conv2d6`` → 6, ``conv2d8`` → 8."""
+    input_layer = config["encoder_conf"]["input_layer"]
+    factors = {"conv2d": 4, "conv2d6": 6, "conv2d8": 8}
+    if input_layer not in factors:
+        raise ValueError(f"unknown input_layer {input_layer!r}")
+    return factors[input_layer]
+
+
+def get_feat_extract_output_lengths(input_length, kernel_size, stride):
+    """Sequence length after a stack of valid convs; ints, arrays or tensors."""
+    len_ds = input_length
+    for k, s in zip(kernel_size, stride):
+        len_ds = (len_ds - k) // s + 1
+    return len_ds
+
+
+def set_weight_decay(named_parameters):
+    """``(decay, no_decay)`` lists of parameter names, the JAX rule: no decay
+    for a name that contains ``bias`` or ``norm`` (case-insensitive; biases
+    and LayerNorm scales), decay for the rest. ``train.optim.AdamW`` takes the
+    ``decay`` list as its ``decay=``."""
+    decay, no_decay = [], []
+    for name, _ in named_parameters:
+        parts = name.lower().split(".")
+        skip = any("bias" in k for k in parts) or any("norm" in k for k in parts)
+        (no_decay if skip else decay).append(name)
+    return decay, no_decay

@@ -68,6 +68,17 @@ def test_the_recipes_are_scanned():
     assert {"dataset", "train", "predict", "eval", "examples"} <= FORBIDDEN
 
 
+def test_the_training_and_dsp_modules_are_scanned():
+    """The modules of the W8A8 training, remat and DSP slice, the training
+    utilities and the NumPy data copies are among the files scanned."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"mindaudio_torch/{m}.py" for m in (
+        "ops/quant", "ops/spectral", "ops/filterbanks", "ops/resample", "models/layers",
+        "models/conformer", "models/asr_model", "utils/common", "train/profiler",
+        "train/optim", "data/filters", "data/spectrum", "data/features", "data/processing",
+        "data/augment", "data/aishell")} <= scanned
+
+
 def test_every_module_imports_without_cuda():
     for path in PORT_FILES:
         parts = path.relative_to(ROOT).with_suffix("").parts

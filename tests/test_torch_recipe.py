@@ -22,6 +22,8 @@ path and removed from ``sys.modules`` (and their directory from
 - ``train.main()`` on ``--device cpu`` (2 + 1 layers, d_model 32) trains with
   saves, a resumed ``main()`` continues at the global step and the schedule,
   and ``predict.main()`` decodes the best-2 average;
+- ``--model.remat`` and ``--model.int8_ffn`` train and save, and their
+  checkpoints load into the float model;
 - settings the port cannot honour raise ``NotImplementedError``;
 - streaming decode (``decode.mode: streaming``) matches the JAX recipe's
   on a causal-conv model, and raises on a model without one.
@@ -356,9 +358,43 @@ def test_protocol_runs_the_stages_in_order(jax_recipe, tmp_path, monkeypatch):
                                            ["--avg", "5", "--mode", "ctc_greedy"]]
 
 
+@pytest.mark.parametrize("flag", ["--model.remat", "--model.int8_ffn"])
+def test_remat_and_int8_ffn_train_and_save(corpus, tmp_path, flag):
+    """Both training knobs of the JAX recipe run through ``train.main()``:
+    two steps and a save, the checkpoint loading into the float model of the
+    default config unchanged (the same parameter names)."""
+    from mindaudio_torch.models.layers import Int8Dense
+    from mindaudio_torch.ops.quant import int8_training_matmul
+
+    extra = ["--device", "cpu", "--train.ckpt_dir", str(tmp_path), "--train.save_every_steps",
+             "2", "--train.log_every_steps", "1", flag, "true"]
+    if not os.path.exists(f"{corpus}/global_cmvn.json"):
+        compute_cmvn_stats.main(_args(corpus, 2, *extra))
+    cfg, _ = ttrain.parse_args(_args(corpus, 2, *extra))
+    model = ttrain.build_model(cfg, 30, "cpu")
+    assert model.encoder.remat == (flag == "--model.remat")
+    n_int8 = sum(isinstance(m, Int8Dense) for m in model.modules())
+    assert n_int8 == (4 * cfg.model.num_encoder_layers + 1 if flag == "--model.int8_ffn" else 0)
+
+    int8_training_matmul.fwd_launches = int8_training_matmul.bwd_launches = 0
+    out = ttrain.main(_args(corpus, 2, *extra))
+    assert (out["steps"], out["final_step"], sorted(out["dev_losses"])) == (2, 2, [2])
+    assert np.isfinite(list(out["dev_losses"].values())).all()
+    # per step one int8 product a W8A8 layer forward, two backward; one forward
+    # a dev batch (the eval of the save)
+    if flag == "--model.int8_ffn":
+        assert int8_training_matmul.bwd_launches == 2 * 2 * n_int8
+        assert int8_training_matmul.fwd_launches > 2 * n_int8
+    else:
+        assert int8_training_matmul.fwd_launches == int8_training_matmul.bwd_launches == 0
+    assert tckpt.list_steps(str(tmp_path)) == [2]
+    params = tckpt.restore_checkpoint(str(tmp_path))["params"]
+    tok = CharTokenizer.from_file(cfg.data.vocab_file)
+    plain, _ = ttrain.parse_args(_args(corpus, 0, "--device", "cpu"))
+    ttrain.load_params(ttrain.build_model(plain, tok.vocab_size, "cpu"), params)
+
+
 @pytest.mark.parametrize("flag,value,item", [
-    ("--model.remat", "true", "queue 1 item 5"),
-    ("--model.int8_ffn", "true", "queue 1 item 5"),
     ("--model.moe_experts", "4", "queue 1 item 8"),
     ("--train.mesh_model_axis", "2", "queue 1 item 8"),
     ("--train.pipeline_stages", "2", "queue 1 item 8"),
