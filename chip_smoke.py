@@ -236,7 +236,40 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    int32 accumulators), timed beside ``torch.matmul`` in bf16 and its own
    quantization passes; and ``resample``, ``istft``, ``mfcc`` and
    ``sliding_window_cmn`` on the card against the CPU's float64 at the
-   stated tolerances, then with TF32 (reported).
+   stated tolerances, then with TF32 (reported);
+17. the parallel layer (``mindaudio_torch/parallel``) on the one card: the
+   Conformer recipe's ``train.main()`` at full width with ZeRO-1 on two
+   ranks (global B = 32 x 227 frames, 16 a rank, two steps; both ranks must
+   log the same losses), its checkpoint resumed by one process (at the
+   global step, AdamW's count two further); then, at two ranks, each layout
+   of ``PAR_TWO_RANKS`` (float32, TF32 off, dropout off) held against one
+   process on the global batch: data parallel at flagship width on the train
+   bench's B = 32 x 10 s, three train steps with ZeRO-1 and three with
+   replicated moments (bit for bit under deterministic algorithms, with the
+   replicated run twice as the control; half the moment bytes a rank; the
+   first update against one process's, stated 1e-2 of a leaf's largest);
+   DeepSpeech2 (B = 64 x 400 frames) and ECAPA-TDNN (B = 32 x 3 s) data
+   parallel with their batch norms' statistics; and at flagship width on B
+   = 8 x 10 s MoE (8 experts, top-2, split over ``model`` with Megatron
+   TP), TP = 2, SP = 2 (ring and Ulysses) and PP = 2 (four microbatches),
+   one forward and backward each. The loss within 1e-5 relative and each
+   gradient leaf (and running statistic) within stated of its largest
+   (1e-3; 1e-4; a gradient leaf's largest taken as at least 1e-6 of the
+   model's largest gradient, for the leaves whose exact gradient is zero),
+   or 4x the step's spread over one-ulp input moves, the larger; the CTC
+   pair must launch on every rank (ECAPA-TDNN's path has no
+   kernel). Prints ms a step on each rank beside one process's.
+
+   Two ranks share the one card: the machine has one H100, and NCCL refuses
+   two ranks on one device, so the ranks run over gloo with CUDA tensors
+   (``PAR_BACKEND``; the port's code is backend-agnostic). gloo takes CUDA
+   tensors in all_reduce, all_gather, broadcast and all_to_all_single, the
+   collectives the layer is written in (it has no point-to-point on CUDA:
+   ``collectives.permute`` is an all_to_all_single). A layout listed in
+   ``PAR_ONE_RANK`` would run the same code at world size 1 over NCCL. Two
+   processes on one card, their collectives copied through the host by
+   gloo, measure correctness and the layer's overheads, not a multi-GPU
+   speed. The ranks are this script run as ``--parallel-worker``.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -311,6 +344,23 @@ WG_CHECK_BATCH, WG_SAMPLE_BATCH = 4, 16
 # phase 9's corpus (one save at the last), and the steps timed on one batch
 # for each of the four int8_ffn x remat settings
 I8_STEPS, I8_TIMED_STEPS = 30, 10
+# the parallel layer (phase 17): two ranks share the one card over gloo,
+# which takes CUDA tensors in all_reduce, all_gather, broadcast and
+# all_to_all_single (established on the card: it refuses send/recv, and
+# collectives.permute is an all_to_all_single for that reason). Every layout
+# runs at two ranks; a layout moved to PAR_ONE_RANK would run the same code
+# at world size 1 over NCCL (degenerate groups), its two-rank form held by
+# the CPU tests alone
+PAR_TWO_RANKS = ("data_zero1", "deepspeech2", "ecapa_tdnn", "moe_expert", "tensor",
+                 "sequence_ring", "sequence_ulysses", "pipeline")
+PAR_ONE_RANK = ()
+PAR_NO_KERNEL = ("ecapa_tdnn",)  # no TPU kernel on its path (phase 12)
+PAR_BACKEND, PAR_DEVICE = "gloo", "cuda"
+PAR_STEPS, PAR_TIMED, PAR_MICRO, PAR_EXPERTS = 3, 2, 4, 8
+PAR_BATCH = 8  # the model-parallel layouts' global batch (x 10 s)
+PAR_DS2_BATCH, PAR_DS2_FRAMES, PAR_DS2_LABELS = 64, 400, 60
+PAR_ECAPA_BATCH = 32
+PAR_RECIPE_UTTS, PAR_RECIPE_STEPS = (64, 16, 8), 2
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -3003,11 +3053,588 @@ def int8_remat_phase(launch_counters, card):
             "card_against_cpu": against_cpu, "w8a8_shapes": products, "dsp": dsp}
 
 
+def par_alone():
+    """Within the block this process computes alone (no active mesh: the
+    world-size-1 reference on the global batch)."""
+    import contextlib
+
+    from mindaudio_torch.parallel.mesh import set_active_mesh
+
+    @contextlib.contextmanager
+    def alone():
+        prev = set_active_mesh(None)
+        try:
+            yield
+        finally:
+            set_active_mesh(prev)
+
+    return alone()
+
+
+def par_feats(batch):
+    """The flagship batch with its deterministic fbank (no dither) as
+    ``feats``: the model's own input, which the spread runs move."""
+    from mindaudio_torch.ops.spectral import kaldi_fbank
+
+    feats = kaldi_fbank(batch["wavs"], num_mel_bins=N_MELS, dither=0.0,
+                        device=batch["wavs"].device)
+    out = {k: v for k, v in batch.items() if k not in ("wavs", "wav_lens")}
+    out["feats"], out["feat_lens"] = feats, 1 + (batch["wav_lens"] - 400) // 160
+    return out
+
+
+def par_rows(mesh, batch):
+    """This rank's rows of the global batch (its ``data`` index)."""
+    from mindaudio_torch.parallel.mesh import shard_batch
+
+    return shard_batch(mesh, batch)
+
+
+def par_ulp(batch, key, seed):
+    """``batch`` with every element of ``batch[key]`` moved one float32 ulp
+    up or down (a seeded draw): the input of a spread run."""
+    x = batch[key]
+    ulp = torch.from_numpy(np.spacing(np.abs(x.cpu().numpy())).astype(np.float32)).to(x.device)
+    sign = torch.from_numpy(np.random.default_rng(seed).choice(
+        [-1.0, 1.0], tuple(x.shape)).astype(np.float32)).to(x.device)
+    return dict(batch, **{key: x + ulp * sign})
+
+
+def par_grads(model, loss_fn, batch, mesh):
+    """``(global loss, {name: whole gradient}, {name: whole running
+    statistic})`` of one forward and backward of ``loss_fn(model, batch)``
+    on this rank's batch, the gradients synced as the train step syncs them
+    (``mesh`` None: one process on the whole batch)."""
+    from mindaudio_torch.models.layers import running_stats
+    from mindaudio_torch.parallel.collectives import all_reduce
+    from mindaudio_torch.parallel.shardings import full_tensor, sync_grads
+
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    if mesh is not None:
+        grads = sync_grads(list(params), grads, mesh)
+        loss = all_reduce(loss.detach(), mesh.group("data")) / mesh.size("data")
+    ids = {id(b): n for n, b in model.named_buffers()}
+    stats = {ids[id(b)]: b.detach().clone() for b in running_stats(model)}
+    return (float(loss.detach()), {n: full_tensor(p, g) for n, p, g in zip(names, params, grads)},
+            stats)
+
+
+def par_hold(label, got, ref, spreads, stated):
+    """Hold one parallel result ``(loss, {leaf}, {stat})`` against the
+    world-size-1 result on the same global batch: the loss (relative) to
+    ``stated["loss"]`` or 4x its spread over the one-ulp input runs, the
+    larger; each gradient (and each running statistic) to ``stated`` of its
+    own leaf's largest or 4x that leaf's own spread, the larger (the rule of
+    ``card_against_cpu``; a gradient leaf's largest taken as at least 1e-6
+    of the model's largest gradient). Returns the worst ratios; raises when
+    one is above 1."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    # a gradient whose exact value is zero (a key bias under the softmax) is
+    # float noise on both sides: its errors count against 1e-6 of the
+    # largest gradient of the model when that is above its own largest
+    floor = 1e-6 * max(r.abs().max().item() for r in ref[1].values())
+
+    def leaf(a, b, kind):
+        scale = b.abs().max().item()
+        return (a - b).abs().max().item() / max(scale, floor if kind == "grad" else 0.0, 1e-30)
+
+    out = {"loss": [got[0], ref[0]]}
+    spread = max(rel(s[0], ref[0]) for s in spreads)
+    limit = max(stated["loss"], 4 * spread)
+    out["loss_error"], out["loss_limit"] = rel(got[0], ref[0]), limit
+    worst = {"loss": out["loss_error"] / limit}
+    for i, kind in ((1, "grad"), (2, "stats")):
+        if not ref[i]:
+            continue
+        ratios = {}
+        for name, r in ref[i].items():
+            s = max(leaf(sp[i][name], r, kind) for sp in spreads)
+            ratios[name] = (leaf(got[i][name].to(r.device), r, kind), max(stated[kind], 4 * s), s)
+        name = max(ratios, key=lambda n: ratios[n][0] / ratios[n][1])
+        err, lim, s = ratios[name]
+        worst[kind] = err / lim
+        out[f"{kind}_worst"] = {"leaf": name, "error": err, "limit": lim, "spread": s,
+                                "leaves": len(ratios)}
+    out["worst_ratio"] = worst
+    log(f"parallel {label}: loss {got[0]:.6f} vs one process {ref[0]:.6f}, worst error/limit "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + "".join(f"; {k} worst in {out[k + '_worst']['leaf']} (error "
+                  f"{out[k + '_worst']['error']:.3e}, limit {out[k + '_worst']['limit']:.3e}, "
+                  f"spread {out[k + '_worst']['spread']:.3e}, {out[k + '_worst']['leaves']} "
+                  "leaves)" for k in ("grad", "stats") if k + "_worst" in out))
+    if any(v > 1 for v in worst.values()):
+        raise AssertionError(f"parallel {label}: differs from one process: {out}")
+    return out
+
+
+def par_sync():
+    if torch.device(PAR_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_step_ms(fn, n):
+    """ms per call of ``fn`` (host clock over ``n`` calls, ending in a
+    synchronize; the caller has run it once)."""
+    par_sync()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    par_sync()
+    return 1e3 * (time.perf_counter() - t) / n
+
+
+def par_layout(ctx, label, shape, build, loss_fn, batch, key, stated):
+    """One layout over a mesh of ``shape``: this rank's forward and backward
+    of ``loss_fn`` on its rows of ``batch`` with the gradients synced, its
+    CTC launches, ms a step (forward, backward and sync, two ranks on one
+    card); rank 0 then holds the result against one process on the whole
+    batch (:func:`par_hold`, spread over two one-ulp moves of
+    ``batch[key]``) and times that too."""
+    import torch.distributed as dist
+
+    from mindaudio_torch.ops import ctc_dp
+    from mindaudio_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(**shape)
+    model = build(mesh)
+    rows = par_rows(mesh, batch)
+    ctc_dp.ctc_dp_fwd.launches = ctc_dp.ctc_dp_bwd.launches = 0
+    got = par_grads(model, loss_fn, rows, mesh)
+    launches = [ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches]
+    ms = par_step_ms(lambda: par_grads(model, loss_fn, rows, mesh), PAR_TIMED)
+    del model
+    torch.cuda.empty_cache()
+    out = {"mesh": mesh.shape, "ctc_launches": launches, "ms": ms}
+    dist.barrier()
+    if ctx["rank"] == 0:
+        with par_alone():
+            ref_model = build(None)
+            init = copy.deepcopy(ref_model.state_dict())
+            refs = []
+            for variant in (batch, par_ulp(batch, key, 1), par_ulp(batch, key, 2)):
+                ref_model.load_state_dict(init)  # the running statistics too
+                refs.append(par_grads(ref_model, loss_fn, variant, None))
+            out["one_process_ms"] = par_step_ms(  # after the three above
+                lambda: par_grads(ref_model, loss_fn, batch, None), PAR_TIMED)
+            del ref_model, init
+            torch.cuda.empty_cache()
+        out["check"] = par_hold(label, got, refs[0], refs[1:], stated)
+    dist.barrier()
+    return out
+
+
+def par_asr_loss(model, batch):
+    """The hybrid loss, plus 0.01 of the MoE blocks' mean aux loss (the
+    recipe's ``moe_aux_weight``) where the model has them."""
+    loss, metrics = model(batch)
+    aux = metrics.get("moe_aux_losses")
+    return loss if aux is None else loss + 0.01 * aux.mean()
+
+
+def par_flagship(**kw):
+    """``build(mesh)`` of the flagship (seeded weights, dropout off), its
+    parallel form over ``mesh`` as ``kw`` asks (``tp``: Megatron over the
+    ``model`` axis, the MoE experts with it; ``sp``: the encoder's
+    sequence-parallel variant; ``pipe``: the encoder blocks pipelined)."""
+    from mindaudio_torch.models.asr_model import ASRModel
+    from mindaudio_torch.parallel.shardings import apply_tensor_parallel
+
+    def build(mesh):
+        extra = {}
+        if kw.get("moe"):
+            extra.update(moe_experts=PAR_EXPERTS, moe_top_k=2)
+        if mesh is not None and kw.get("sp"):
+            extra.update(sp_mesh=mesh, sp_variant=kw["sp"])
+        if mesh is not None and kw.get("pipe"):
+            extra.update(pipeline_mesh=mesh, pipeline_microbatches=PAR_MICRO)
+        gen = torch.Generator(device=PAR_DEVICE).manual_seed(0)
+        model = ASRModel(VOCAB, input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS,
+                         ffn_dim=FFN, num_encoder_layers=ENC_LAYERS,
+                         num_decoder_layers=DEC_LAYERS, kernel_size=CONV_KERNEL,
+                         ctc_weight=0.3, ctc_impl="kernel", device=PAR_DEVICE,
+                         **extra).reset_parameters(gen).eval()
+        if mesh is not None and kw.get("tp"):
+            apply_tensor_parallel(model, mesh)
+        return model
+
+    return build
+
+
+def par_moments(model, seed=13):
+    """A running AdamW state (count 3, seeded moments, whole tensors), so
+    that an update is smooth in the gradient (as ``card_against_cpu``)."""
+    rng = np.random.default_rng(seed)
+    return {"count": 3,
+            "mu": {n: torch.from_numpy(0.01 * rng.standard_normal(p.shape).astype(np.float32))
+                   for n, p in model.named_parameters()},
+            "nu": {n: torch.from_numpy((1e-4 * (1 + rng.random(p.shape))).astype(np.float32))
+                   for n, p in model.named_parameters()}}
+
+
+def par_zero1(ctx, batch):
+    """Data parallel at full width with and without ZeRO-1: ``PAR_STEPS``
+    float32 train steps each from the same weights and running moments; the
+    two must be bit for bit alike (losses, parameters, whole moments), each
+    rank's moment bytes half the replicated ones; the ZeRO-1 step's ms; and
+    on rank 0 the first update against one process's on the global batch
+    (stated 1e-2 of a leaf's largest update, or 4x its spread)."""
+    import torch.distributed as dist
+
+    from mindaudio_torch.ops import ctc_dp
+    from mindaudio_torch.parallel.mesh import make_mesh
+    from mindaudio_torch.train.optim import AdamW
+    from mindaudio_torch.train.state import make_train_step
+
+    mesh = make_mesh(data=2)
+    rows = par_rows(mesh, batch)
+    model = par_flagship()(mesh)  # every run starts from its weights
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moments = par_moments(model)
+    runs = {}
+    ctc_dp.ctc_dp_fwd.launches = ctc_dp.ctc_dp_bwd.launches = 0
+    # bit for bit needs a deterministic backward (the embedding's and the
+    # convolutions' gradients otherwise add in another order run to run):
+    # the control is the replicated run twice
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for zero1 in ("control", False, True):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        opt = AdamW(model.named_parameters(), 1e-3, weight_decay=1e-2, mu_dtype=torch.bfloat16,
+                    zero1_group=mesh.group("data") if zero1 is True else None)
+        opt.load_state_dict(moments)
+        step = make_train_step(model, opt, grad_clip_norm=5.0, mesh=mesh)
+        losses, update = [], None
+        for i in range(PAR_STEPS):
+            losses.append(float(step(rows)["loss"]))
+            if i == 0:
+                update = {n: p.detach() - init[n] for n, p in model.named_parameters()}
+        runs[zero1] = {"losses": losses, "update": update, "state": opt.state_dict(),
+                       "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                       "bytes": opt._mu.numel() * 2 + opt._nu.numel() * 4}
+        if zero1 is True:
+            torch.use_deterministic_algorithms(False)
+            step(rows)  # the first step out of deterministic mode
+            runs["ms"] = par_step_ms(lambda: step(rows), PAR_TIMED)
+        del opt, step
+    del model
+    torch.cuda.empty_cache()
+    launches = [ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches]
+
+    def unequal(a, b):
+        """The leaves (parameters and both moments) that differ in a bit."""
+        return [f"{k}:{n}" for k in ("params", "mu", "nu")
+                for n, t in (a[k] if k == "params" else a["state"][k]).items()
+                if not torch.equal(t, (b[k] if k == "params" else b["state"][k])[n])]
+
+    rep, z1 = runs[False], runs[True]
+    control, differ = unequal(runs["control"], rep), unequal(rep, z1)
+    equal = rep["losses"] == z1["losses"] and not differ
+    out = {"mesh": mesh.shape, "losses": z1["losses"], "bit_equal": equal,
+           "moment_bytes": [rep["bytes"], z1["bytes"]], "control_unequal": len(control),
+           "unequal": len(differ), "ctc_launches": launches, "ms": runs["ms"]}
+    if not equal:
+        raise AssertionError(f"parallel data_zero1: ZeRO-1 is not bit for bit the replicated "
+                             f"run: {len(differ)} leaves differ ({differ[:4]}), the control "
+                             f"(replicated twice) {len(control)} ({control[:4]}); losses "
+                             f"{rep['losses']} / {z1['losses']}")
+    if z1["bytes"] * 2 > rep["bytes"] + 8:
+        raise AssertionError(f"parallel data_zero1: moment bytes {rep['bytes']} -> {z1['bytes']}")
+    dist.barrier()
+    if ctx["rank"] == 0:
+        with par_alone():
+            refs = []
+            model = par_flagship()(None)
+            for variant in (batch, par_ulp(batch, "feats", 1), par_ulp(batch, "feats", 2)):
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        p.copy_(init[n])
+                opt = AdamW(model.named_parameters(), 1e-3, weight_decay=1e-2,
+                            mu_dtype=torch.bfloat16)
+                opt.load_state_dict(moments)
+                one = make_train_step(model, opt, grad_clip_norm=5.0)
+                loss = float(one(variant)["loss"])
+                refs.append((loss, {n: p.detach() - init[n]
+                                    for n, p in model.named_parameters()}, {}))
+            out["one_process_ms"] = par_step_ms(lambda: one(batch), PAR_TIMED)
+            del model, init, opt, one
+            torch.cuda.empty_cache()
+        out["check"] = par_hold("data_zero1 (the first update)",
+                                (z1["losses"][0], z1["update"], {}), refs[0], refs[1:],
+                                {"loss": 1e-5, "grad": 1e-2, "stats": 1e-4})
+    dist.barrier()
+    return out
+
+
+def par_recipe(ctx, root):
+    """The Conformer recipe's ``main()`` at full width with ZeRO-1 on the
+    two ranks for ``PAR_RECIPE_STEPS`` steps (global batch 32 in the
+    227-frame bucket), writing its checkpoint."""
+    from mindaudio_torch.recipes.conformer import train as rtrain
+
+    out = rtrain.main(par_recipe_args(root, PAR_RECIPE_STEPS, "--train.zero1_optimizer", "true"))
+    return {"steps": out["steps"], "final_step": out["final_step"],
+            "losses": out["losses"], "dev_losses": out["dev_losses"]}
+
+
+def par_recipe_args(root, steps, *flags):
+    """Phase 9's flags with 32 utterances in the 227-frame bucket and a save
+    at the last step."""
+    from mindaudio_torch.recipes.conformer import convergence_run
+
+    return convergence_run._args(root, steps) + [
+        "--data.batch_factor", "0.34", "--train.log_every_steps", "1",
+        "--train.save_every_steps", "100", "--train.resume", "true",
+        "--train.ckpt_dir", f"{root}/ckpt"] + list(flags)
+
+
+def par_ds2(ctx):
+    """DeepSpeech2 at full width, data parallel at B = 64 (32 a rank,
+    ``PAR_DS2_FRAMES`` frames, ``PAR_DS2_LABELS`` labels): the batch norms'
+    training statistics and running statistics over the global batch."""
+    from mindaudio_torch.loss.ctc_loss import ctc_loss
+    from mindaudio_torch.recipes.deepspeech2 import dataset as ds
+    from mindaudio_torch.recipes.deepspeech2 import train as ds_train
+
+    cfg, _ = ds_train.parse_args(["--device", PAR_DEVICE])
+    rng = np.random.default_rng(21)
+    n = PAR_DS2_FRAMES * ds.HOP
+    lens = rng.integers(n // 2, n, PAR_DS2_BATCH)
+    wavs = (0.1 * rng.standard_normal((PAR_DS2_BATCH, n))).astype(np.float32)
+    wavs[np.arange(n)[None, :] >= lens[:, None]] = 0.0
+    batch = {"wavs": torch.from_numpy(wavs).to(PAR_DEVICE), "wav_lens": torch.from_numpy(lens).to(PAR_DEVICE),
+             "labels": torch.from_numpy(rng.integers(0, ds.BLANK_ID, (
+                 PAR_DS2_BATCH, ds.MAX_LABEL_LEN))).to(PAR_DEVICE),
+             "label_lens": torch.full((PAR_DS2_BATCH,), PAR_DS2_LABELS).to(PAR_DEVICE)}
+    feats, feat_lens = ds_train.device_features(batch["wavs"], batch["wav_lens"])
+    batch = dict(batch, feats=feats, feat_lens=feat_lens)
+
+    def loss_fn(model, b):
+        logits, out_lens = model(b["feats"], b["feat_lens"])
+        return ctc_loss(logits, out_lens, b["labels"], b["label_lens"], blank_id=ds.BLANK_ID)
+
+    return par_layout(ctx, "deepspeech2", dict(data=2),
+                      lambda mesh: ds_train.build_model(cfg, PAR_DEVICE).train(), loss_fn, batch,
+                      "feats", {"loss": 1e-5, "grad": 1e-3, "stats": 1e-4})
+
+
+def par_ecapa(ctx):
+    """ECAPA-TDNN at full width, data parallel at B = 32 x 3 s: the batch
+    norms' statistics and the fbank's 80 dB floor over the global batch."""
+    from mindaudio_torch.loss.aam_softmax import aam_softmax_loss
+    from mindaudio_torch.recipes.ecapa_tdnn import train_speaker_embeddings as tse
+
+    cfg, _ = tse.parse_args(["--device", PAR_DEVICE])
+    rng = np.random.default_rng(22)
+    wavs = (0.1 * rng.standard_normal((PAR_ECAPA_BATCH, 48000))).astype(np.float32)
+    labels = rng.integers(0, ECAPA_SPEAKERS, PAR_ECAPA_BATCH)
+    batch = {"wavs": torch.from_numpy(wavs).to(PAR_DEVICE), "labels": torch.from_numpy(labels).to(PAR_DEVICE)}
+    margin, scale = float(cfg.optim.margin), float(cfg.optim.scale)
+
+    def loss_fn(model, b):
+        feats = tse.extract_features(b["wavs"], n_mels=int(cfg.features.n_mels))
+        return aam_softmax_loss(model(feats)[1], b["labels"], margin=margin, scale=scale)
+
+    return par_layout(ctx, "ecapa_tdnn", dict(data=2),
+                      lambda mesh: tse.build_model(cfg, PAR_DEVICE, ECAPA_SPEAKERS).train(),
+                      loss_fn, batch, "wavs", {"loss": 1e-5, "grad": 1e-3, "stats": 1e-4})
+
+
+def parallel_worker(spec_path):
+    """One rank of phase 17 (``chip_smoke.py --parallel-worker SPEC``): join
+    the group the environment describes (``PAR_BACKEND`` at two ranks, NCCL
+    at one), run the layouts the spec lists in order, and write what each
+    returned to ``<spec>.rank<r>.json``."""
+    import torch.distributed as dist
+
+    from mindaudio_torch.parallel.mesh import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if world > 1:
+        initialize_distributed(backend=PAR_BACKEND, device=PAR_DEVICE, timeout=300)
+    else:
+        dist.init_process_group("nccl", init_method=spec["init_method"], rank=0, world_size=1)
+    ctx = {"rank": rank}
+    # the model-parallel layouts split every row, so a smaller batch shows them
+    flagship = par_feats(train_batch(PAR_BATCH, seed=5, device=PAR_DEVICE))
+    hybrid = {"loss": 1e-5, "grad": 1e-3, "stats": 1e-4}
+    jobs = {
+        "recipe": lambda: par_recipe(ctx, spec["root"]),
+        "data_zero1": lambda: par_zero1(ctx, par_feats(
+            train_batch(TRAIN_BATCH, seed=5, device=PAR_DEVICE))),
+        "deepspeech2": lambda: par_ds2(ctx),
+        "ecapa_tdnn": lambda: par_ecapa(ctx),
+        "moe_expert": lambda: par_layout(ctx, "moe_expert", dict(model=2),
+                                         par_flagship(moe=True, tp=True), par_asr_loss,
+                                         flagship, "feats", hybrid),
+        "tensor": lambda: par_layout(ctx, "tensor", dict(model=2), par_flagship(tp=True),
+                                     par_asr_loss, flagship, "feats", hybrid),
+        "sequence_ring": lambda: par_layout(ctx, "sequence_ring", dict(seq=2),
+                                            par_flagship(sp="ring"), par_asr_loss, flagship,
+                                            "feats", hybrid),
+        "sequence_ulysses": lambda: par_layout(ctx, "sequence_ulysses", dict(seq=2),
+                                               par_flagship(sp="ulysses"), par_asr_loss,
+                                               flagship, "feats", hybrid),
+        "pipeline": lambda: par_layout(ctx, "pipeline", dict(pipe=2), par_flagship(pipe=True),
+                                       par_asr_loss, flagship, "feats", hybrid),
+    }
+    results = {}
+    for name in spec["layouts"]:
+        t = time.perf_counter()
+        results[name] = jobs[name]()
+        results[name]["seconds"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    with open(f"{spec_path}.rank{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_spawn(spec, world, timeout):
+    """Run :func:`parallel_worker` on ``world`` processes sharing the card;
+    returns each rank's results (rank order). A rank that fails or outlives
+    ``timeout`` fails the phase; every process is stopped."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spec = dict(spec, init_method=f"tcp://localhost:{port}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        path = os.path.join(tmp, "spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        procs = []
+        for rank in range(world):
+            # (the cuBLAS workspace setting makes its products deterministic)
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-worker", path],
+                env=env, cwd=os.path.dirname(os.path.abspath(__file__))))
+        deadline = time.monotonic() + timeout
+        try:
+            for rank, p in enumerate(procs):
+                code = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                if code != 0:
+                    raise AssertionError(f"parallel: rank {rank} of {world} exited with {code}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for rank in range(world):
+            with open(f"{path}.rank{rank}.json") as f:
+                results.append(json.load(f))
+        return results
+
+
+def parallel_phase(launch_counters, card):
+    """Phase 17: the parallel layer (``mindaudio_torch/parallel``) on the
+    one card, two ranks sharing it over ``PAR_BACKEND`` (see the module
+    docstring): the Conformer recipe with ZeRO-1 and its checkpoint resumed
+    by one process, then each layout of ``PAR_TWO_RANKS`` (and, at world
+    size 1 over NCCL, of ``PAR_ONE_RANK``) held against one process on the
+    global batch. ``launch_counters`` (the four kernel wrappers) are set to
+    0 here and read after the one-process resume; the ranks report their
+    own CTC launches. Returns the summary."""
+    import tempfile
+
+    from mindaudio_torch.recipes.conformer import compute_cmvn_stats, convergence_run
+    from mindaudio_torch.recipes.conformer import train as rtrain
+    from mindaudio_torch.train import checkpoint
+
+    log(f"parallel: {len(PAR_TWO_RANKS)} layouts at two ranks sharing the one card over "
+        f"{PAR_BACKEND} (CUDA tensors): {', '.join(PAR_TWO_RANKS)}; at world size 1 over "
+        f"NCCL: {', '.join(PAR_ONE_RANK) or 'none'}. Two processes on one card time "
+        "correctness, not a multi-GPU speed.")
+    out = {"two_ranks": list(PAR_TWO_RANKS), "one_rank": list(PAR_ONE_RANK),
+           "backend": PAR_BACKEND, "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_recipe_") as root:
+        convergence_run.gen(root, n_train=PAR_RECIPE_UTTS[0], n_dev=PAR_RECIPE_UTTS[1],
+                            n_test=PAR_RECIPE_UTTS[2])
+        compute_cmvn_stats.main(par_recipe_args(root, PAR_RECIPE_STEPS))
+        t = time.perf_counter()
+        ranks = par_spawn({"layouts": ["recipe", *PAR_TWO_RANKS], "root": root}, 2, 900)
+        out["seconds_two_ranks"] = time.perf_counter() - t
+        if PAR_ONE_RANK:
+            one = par_spawn({"layouts": list(PAR_ONE_RANK), "root": root}, 1, 600)[0]
+            ranks[0].update(one)
+        recipe = [r["recipe"] for r in ranks]
+        if recipe[0]["losses"] != recipe[1]["losses"] or recipe[0]["final_step"] != 2:
+            raise AssertionError(f"parallel recipe: ranks disagree or stopped early: {recipe}")
+        saved = checkpoint.restore_checkpoint(f"{root}/ckpt")
+        for c in launch_counters:
+            c.launches = 0
+        resumed = rtrain.main(par_recipe_args(root, 2 * PAR_RECIPE_STEPS))
+        launches = [c.launches for c in launch_counters]
+        again = checkpoint.restore_checkpoint(f"{root}/ckpt")
+        if (resumed["start_step"], resumed["final_step"]) != (2, 4) or int(
+                again["opt_state"]["count"]) != int(saved["opt_state"]["count"]) + 2:
+            raise AssertionError(f"parallel recipe: the two-rank checkpoint did not resume: "
+                                 f"{resumed}")
+        out["recipe"] = {"two_rank_losses": recipe[0]["losses"],
+                         "resumed_at_one": [resumed["start_step"], resumed["final_step"]],
+                         "launches_one_process": launches}
+        log(f"parallel recipe: main() at full width with ZeRO-1 on two ranks, losses "
+            f"{recipe[0]['losses']} on both; its checkpoint resumed by one process at global "
+            f"step {resumed['start_step']} to {resumed['final_step']}")
+    for name in (*PAR_TWO_RANKS, *PAR_ONE_RANK):
+        res = [r[name] for r in ranks if name in r]
+        launches = [r["ctc_launches"] for r in res]
+        if name not in PAR_NO_KERNEL and any(l[0] < 1 or l[1] < 1 for l in launches):
+            raise AssertionError(f"parallel {name}: a rank launched no CTC kernel: {launches}")
+        summary = {"ranks": len(res), "ctc_launches_per_rank": launches,
+                   "ms_per_rank": [r["ms"] for r in res],
+                   "one_process_ms": res[0].get("one_process_ms"),
+                   "worst_ratio": res[0]["check"]["worst_ratio"],
+                   "loss": res[0]["check"]["loss"], "seconds": res[0]["seconds"]}
+        if name == "data_zero1":
+            summary.update(bit_equal=all(r["bit_equal"] for r in res),
+                           moment_bytes=res[0]["moment_bytes"], losses=res[0]["losses"],
+                           control_unequal=res[0]["control_unequal"])
+        out[name] = summary
+        what = ("a train step with ZeRO-1" if name == "data_zero1"
+                else "forward, backward and gradient sync")
+        log(f"parallel {name}: ms a step ({what}; float32, TF32 off) "
+            f"{' / '.join(f'{v:.1f}' for v in summary['ms_per_rank'])} on the "
+            f"{len(res)} rank(s) sharing {card}, one process on the global batch "
+            f"{summary['one_process_ms']:.1f}; CTC launches per rank {launches}")
+    return out
+
+
+PHASE_SECONDS = {}
+_PHASE_START = [None, None]
+
+
+def phase_seconds(next_phase):
+    """Note the seconds since the phase before ``next_phase`` began (the
+    phases' own numbering; 7 and 8 run as one)."""
+    now = time.perf_counter()
+    if _PHASE_START[0] is not None:
+        PHASE_SECONDS[_PHASE_START[0]] = round(now - _PHASE_START[1], 1)
+    _PHASE_START[:] = [next_phase, now]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(sys.argv[2])
     from mindaudio_torch.models.asr_model import ASRModel
     from mindaudio_torch.ops import _build
     from mindaudio_torch.ops import ctc_dp, logmel, quant
@@ -3032,6 +3659,7 @@ def main():
         "cudnn", torch.backends.cudnn.allow_tf32)
 
     # 1. the card
+    phase_seconds(1)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -3039,6 +3667,7 @@ def main():
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0))
 
+    phase_seconds(2)
     # 2. build
     t0 = time.perf_counter()
     reports = _build.build()
@@ -3048,6 +3677,7 @@ def main():
             if "registers" in line or "spill" in line or "Compiling entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    phase_seconds(3)
     # 3. kernel against its plain version at the slice's shapes
     t_sub = ((1 + (SAMPLES - 400) // 160 - 1) // 2 - 1) // 2
     f_sub = ((N_MELS - 1) // 2 - 1) // 2
@@ -3097,6 +3727,7 @@ def main():
         f"bit-identical over two runs at {len(split_cases)} shapes: {split_cases}")
     checked = {(r["m"], r["k"], r["n"], r["dtype"]): r for r in results}
 
+    phase_seconds(4)
     # 4. the slice at full width
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = ASRModel(VOCAB, input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS,
@@ -3231,6 +3862,7 @@ def main():
     del serving, gpu, cpu, model
     torch.cuda.empty_cache()
 
+    phase_seconds(5)
     # 5. CTC: the chain's latency ladder, then the kernels against the plain
     # recursion at every case, with the launch plan of each
     ladder = ctc_chain_ladder(_build)
@@ -3272,6 +3904,7 @@ def main():
                 f"F.ctc_loss fwd {r['fwd_ms'] / r['library_fwd_ms']:.3f}, bwd "
                 f"{r['bwd_ms'] / r['library_bwd_ms']:.3f}")
 
+    phase_seconds(6)
     # 6. fused log-mel kernel against its plain version, then its entry point
     gen = torch.Generator(device="cuda").manual_seed(3)
     asr = dict(n_fft=400, hop_length=160, n_mels=N_MELS)
@@ -3351,24 +3984,29 @@ def main():
                              f"expected {LOGMEL_CALLS}")
     del wave, mel_out
 
+    phase_seconds(7)
     # 7./8. train at full width; the poisoned batch; one step against the CPU
     flagship = ctc_results["flagship"]
     ctc_launches = train_phase(ctc_dp, flagship)
     card_against_cpu_step()
 
+    phase_seconds(9)
     # 9. the recipe: manifest data, training with dev-scored checkpoints and a
     # resume, a best-2 average, decoding
     recipe_launches, recipe = recipe_phase(ctc_dp)
 
+    phase_seconds(10)
     # 10. streaming decode of the served utterances, and the int8 GEMM at the
     # shapes it meets
     stream, stream_results = streaming_phase(quant, wav_np, frames)
     stream_launches = sum(r["launches"] for r in stream["runs"].values())
 
+    phase_seconds(11)
     # 11. the DeepSpeech2 recipe at full width: the CTC pair on its block path
     ds2_launches, ds2 = deepspeech2_phase(ctc_dp)
     ds2_ctc = {name: ctc_results[name] for name in CTC_TIMED if name.startswith("deepspeech2")}
 
+    phase_seconds(12)
     # 12. the ECAPA-TDNN recipe at full width: no TPU kernel on its path
     kernels = [quant.int8_matmul, ctc_dp.ctc_dp_fwd, ctc_dp.ctc_dp_bwd, logmel.fused_logmel]
     ecapa = ecapa_phase(kernels, card)
@@ -3376,6 +4014,7 @@ def main():
         k: v for k, v in ecapa.items() if k not in ("losses", "window_ms")}}))
     ecapa_launches = ecapa["launches"]
 
+    phase_seconds(13)
     # 13. the Conv-TasNet and TasNet recipes at full width: no TPU kernel on
     # their path
     separation = separation_phase(kernels, card)
@@ -3385,18 +4024,21 @@ def main():
     sep_launches = {k: sum(s["launches"][k] for s in separation.values())
                     for k in ecapa_launches}
 
+    phase_seconds(14)
     # 14. the FastSpeech2 recipe at full width: no TPU kernel on its path
     tts = fastspeech2_phase(kernels, card)
     log("fastspeech2: " + json.dumps({"card": card, **{
         k: v for k, v in tts.items() if k not in ("losses", "window_ms")}}))
     tts_launches = tts["launches"]
 
+    phase_seconds(15)
     # 15. the WaveGrad recipe at full width: no TPU kernel on its path
     vocoder = wavegrad_phase(kernels, card)
     log("wavegrad: " + json.dumps({"card": card, **{
         k: v for k, v in vocoder.items() if k not in ("losses", "window_ms")}}))
     wg_launches = vocoder["launches"]
 
+    phase_seconds(16)
     # 16. the Conformer recipe trained W8A8 with rematerialized blocks; the
     # W8A8 product and the DSP ops on the card
     int8_remat = int8_remat_phase(kernels, card)
@@ -3404,6 +4046,16 @@ def main():
         k: v for k, v in int8_remat.items()
         if k not in ("losses", "window_ms", "card_against_cpu")}}))
     i8_launches = int8_remat["launches"]
+
+    phase_seconds(17)
+    # 17. the parallel layer: two ranks on the one card over gloo
+    parallel = parallel_phase(kernels, card)
+    log("parallel: " + json.dumps(parallel))
+    par_ctc = {name: parallel[name]["ctc_launches_per_rank"]
+               for name in (*PAR_TWO_RANKS, *PAR_ONE_RANK)}
+
+    phase_seconds(None)
+    log("seconds a phase: " + json.dumps(PHASE_SECONDS))
 
     # summary lines
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
@@ -3445,6 +4097,7 @@ def main():
         "fastspeech2_launches": tts_launches["ctc_dp_fwd"],
         "wavegrad_launches": wg_launches["ctc_dp_fwd"],
         "int8_remat_launches": i8_launches["ctc_dp_fwd"],
+        "parallel_launches_per_rank": {k: [r[0] for r in v] for k, v in par_ctc.items()},
     }, {
         "name": "ctc_dp_bwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -3461,6 +4114,7 @@ def main():
         "fastspeech2_launches": tts_launches["ctc_dp_bwd"],
         "wavegrad_launches": wg_launches["ctc_dp_bwd"],
         "int8_remat_launches": i8_launches["ctc_dp_bwd"], "card": card,
+        "parallel_launches_per_rank": {k: [r[1] for r in v] for k, v in par_ctc.items()},
     }, {
         "name": "fused_logmel", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/logmel.cu",

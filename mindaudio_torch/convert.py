@@ -25,7 +25,9 @@ wants it:
   layer with one direction, raises;
 - Conv-TasNet's layer norms' ``gamma``/``beta`` ``(1, 1, C)`` → ``(C,)``;
   PReLU's ``negative_slope`` ``()`` → ``weight (1,)``;
-- ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across;
+- ``bias``, ``pos_bias_u`` and ``pos_bias_v`` are carried across, and so
+  are the MoE layer's ``gate``, ``w1``, ``b1``, ``w2``, ``b2`` (the port
+  keeps their flax layouts);
 - with ``batch_stats``, a batch norm's ``mean``/``var`` → its
   ``running_mean``/``running_var`` buffers;
 - a leaf of any other name raises.
@@ -52,7 +54,9 @@ __all__ = ["module_name", "convert_params", "convert_adamw_state", "unwrap_model
 _RENAME = {"Dense_0": "w_1", "Dense_1": "w_2", "Conv_0": "conv1", "Conv_1": "conv2",
            "PReLU_0": "prelu"}
 _KERNEL_LAYOUT = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
-_CARRIED = {"bias", "pos_bias_u", "pos_bias_v", "weight", "running_mean", "running_var"}
+# the MoE layer's router and expert stacks keep flax's names and layouts
+_CARRIED = {"bias", "pos_bias_u", "pos_bias_v", "weight", "running_mean", "running_var",
+            "gate", "w1", "b1", "w2", "b2"}
 
 
 def module_name(path):

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import data_denominator
+
 __all__ = ["fastspeech2_loss"]
 
 
@@ -21,8 +23,9 @@ def fastspeech2_loss(mel_pred, mel_target, log_d_pred, duration_target, p_pred, 
     """
     src_m = src_mask.float()
     mel_m = mel_mask.float()
-    src_n = torch.clamp_min(src_m.sum(), 1.0)
-    mel_n = torch.clamp_min(mel_m.sum(), 1.0)
+    # counts of the global batch (summed over the data group)
+    src_n = data_denominator(src_m.sum(), 1.0)
+    mel_n = data_denominator(mel_m.sum(), 1.0)
 
     log_d_target = torch.log(duration_target.float() + 1.0)
     duration_loss = ((log_d_pred - log_d_target).abs() * src_m).sum() / src_n

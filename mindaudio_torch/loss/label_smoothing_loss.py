@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import data_denominator
+
 __all__ = ["IGNORE_ID", "label_smoothing_loss"]
 
 IGNORE_ID = -1
@@ -50,5 +52,6 @@ def label_smoothing_loss(logits, targets, smoothing=0.1, ignore_id=IGNORE_ID,
 
     kl = plogp - (confidence - low) * logq_t - low * sum_logq
     kl = torch.where(mask, kl, 0.0)
-    denom = mask.sum().clamp_min(1) if normalize_length else targets.shape[0]
+    # the token count of the global batch (summed over the data group)
+    denom = data_denominator(mask.sum()) if normalize_length else targets.shape[0]
     return kl.sum() / denom

@@ -6,8 +6,12 @@ CTC head, combined as ``loss = w * loss_ctc + (1 - w) * loss_att`` in
 ``forward``. ``encode``, ``ctc_log_probs``, ``decode_step``,
 ``decoder_logits`` and, streaming, ``encode_chunk`` are the pieces that
 decoding calls. ``remat`` and ``int8_ffn`` are the JAX module's training
-knobs (``int8_ffn`` also runs the CTC projection W8A8); its MoE, pipeline
-and sequence-parallel knobs are not ported yet.
+knobs (``int8_ffn`` also runs the CTC projection W8A8); ``moe_*``,
+``sp_mesh``/``sp_variant`` and ``pipeline_*`` its parallel ones
+(``models.conformer.ConformerEncoder``). With MoE blocks, ``forward``'s
+metrics carry ``moe_aux_losses``: the blocks' Switch losses, stacked, with
+their gradient (the JAX model sows them), which a trainer weights into its
+loss.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ from torch.nn import functional as F
 from .. import resolve_device
 from ..loss.ctc_loss import ctc_loss
 from ..loss.label_smoothing_loss import IGNORE_ID, label_smoothing_loss
+from ..parallel.mesh import data_denominator
 from .conformer import ConformerEncoder, TransformerDecoder
-from .layers import FastDropout, Int8Dense
+from ..parallel.moe import MoEFeedForward, moe_aux_losses
+from .layers import FastDropout, Int8Dense, column_head
 
 __all__ = ["ASRModel"]
 
@@ -49,6 +55,8 @@ class ASRModel(nn.Module):
                  ctc_weight=0.3, ctc_impl="auto", lsm_weight=0.1,
                  use_dynamic_chunk=False, static_chunk_size=0, causal_conv=False,
                  cmvn_mean=None, cmvn_istd=None, remat=False, int8_ffn=False,
+                 moe_experts=0, moe_top_k=2, moe_capacity_factor=1.25, moe_mesh=None,
+                 sp_mesh=None, sp_variant="ring", pipeline_mesh=None, pipeline_microbatches=4,
                  device="cuda"):
         super().__init__()
         self.vocab_size = vocab_size
@@ -63,6 +71,10 @@ class ASRModel(nn.Module):
             kernel_size=kernel_size, use_dynamic_chunk=use_dynamic_chunk,
             static_chunk_size=static_chunk_size, causal_conv=causal_conv,
             cmvn_mean=cmvn_mean, cmvn_istd=cmvn_istd, remat=remat, int8_ffn=int8_ffn,
+            moe_experts=moe_experts, moe_top_k=moe_top_k,
+            moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh, sp_mesh=sp_mesh,
+            sp_variant=sp_variant, pipeline_mesh=pipeline_mesh,
+            pipeline_microbatches=pipeline_microbatches,
         )
         self.decoder = TransformerDecoder(
             vocab_size, d_model=d_model, head_num=head_num, ffn_dim=ffn_dim,
@@ -89,6 +101,8 @@ class ASRModel(nn.Module):
             elif isinstance(module, nn.Embedding):
                 module.weight.normal_(0.0, 1.0 / math.sqrt(module.embedding_dim),
                                       generator=generator)
+            elif isinstance(module, MoEFeedForward):
+                module.reset_parameters(generator)
         for name, p in self.named_parameters():
             if name.endswith(("pos_bias_u", "pos_bias_v")):
                 bound = math.sqrt(6.0 / sum(p.shape))
@@ -128,13 +142,17 @@ class ASRModel(nn.Module):
             loss_att = label_smoothing_loss(dec_logits, ys_out, smoothing=self.lsm_weight)
             valid = ys_out != IGNORE_ID
             hits = (dec_logits.argmax(-1) == ys_out) & valid
-            acc_att = hits.sum() / valid.sum().clamp_min(1)
+            acc_att = hits.sum() / data_denominator(valid.sum())
         if self.ctc_weight > 0.0:
-            loss_ctc = ctc_loss(self.ctc_proj(enc_out), enc_lens, batch["labels"],
+            loss_ctc = ctc_loss(column_head(self.ctc_proj, enc_out), enc_lens, batch["labels"],
                                 batch["label_lens"], impl=self.ctc_impl)
 
         loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
-        return loss, {"loss_att": loss_att, "loss_ctc": loss_ctc, "acc_att": acc_att}
+        metrics = {"loss_att": loss_att, "loss_ctc": loss_ctc, "acc_att": acc_att}
+        aux = moe_aux_losses(self.encoder)
+        if aux.numel():
+            metrics["moe_aux_losses"] = aux
+        return loss, metrics
 
     def encode(self, feats, feat_lens, decoding_chunk_size=-1,
                num_decoding_left_chunks=-1):
@@ -151,7 +169,7 @@ class ASRModel(nn.Module):
 
     def ctc_log_probs(self, enc_out):
         """(B, T', vocab) float32 log-softmax CTC posterior."""
-        return F.log_softmax(self.ctc_proj(enc_out).float(), dim=-1)
+        return F.log_softmax(column_head(self.ctc_proj, enc_out).float(), dim=-1)
 
     def decode_step(self, enc_out, enc_mask, ys):
         """Log-probs of the next token for each full hypothesis prefix."""

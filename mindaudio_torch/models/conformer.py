@@ -3,8 +3,12 @@
 The dense path, for decoding, streaming decode (``forward_chunk``) and
 training, with the JAX module's training knobs ``remat`` (each encoder
 block's activations recomputed in the backward) and ``int8_ffn`` (both FFNs
-of every block W8A8 on the int8 tensor cores), and the conv module's
-``norm_type``; no MoE, sequence parallelism or pipeline.
+of every block W8A8 on the int8 tensor cores), the conv module's
+``norm_type``, and its parallel ones (``parallel/``): MoE blocks
+(``moe_experts``), sequence parallelism over the ``seq`` group
+(``sp_mesh``) and a GPipe pipeline of the blocks over ``pipe``
+(``pipeline_mesh``). Megatron tensor parallelism is applied to a built model
+by ``parallel.shardings.apply_tensor_parallel``.
 """
 
 from __future__ import annotations
@@ -13,6 +17,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.collectives import all_gather, scatter
+from ..parallel.mesh import batch_stat_axes
+from ..parallel.moe import MoEFeedForward
+from ..parallel.pipeline import pipeline_apply
+from ..parallel.shardings import set_partial
 from ..utils.mask import add_optional_chunk_mask, make_non_pad_mask, subsequent_mask
 from .layers import (
     LN_EPS,
@@ -25,6 +34,7 @@ from .layers import (
     PositionwiseFeedForward,
     RelPositionMultiHeadedAttention,
     Swish,
+    column_head,
     remat_call,
     sinusoid_table,
 )
@@ -44,7 +54,8 @@ class ConformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, head_num, ffn_dim, dropout_rate=0.1,
                  attention_dropout_rate=0.0, kernel_size=15, causal_conv=False,
-                 norm_type="layer_norm", int8_ffn=False):
+                 norm_type="layer_norm", int8_ffn=False, moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_mesh=None):
         super().__init__()
         self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
         self.feed_forward_macaron = PositionwiseFeedForward(
@@ -56,8 +67,13 @@ class ConformerEncoderLayer(nn.Module):
         self.conv_module = ConvolutionModule(d_model, kernel_size, causal=causal_conv,
                                              norm_type=norm_type)
         self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.feed_forward = PositionwiseFeedForward(
-            d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
+        if moe_experts > 0:  # the final FFN becomes the MoE (MoE-Conformer)
+            self.feed_forward = MoEFeedForward(
+                d_model, moe_experts, ffn_dim, dropout_rate, top_k=moe_top_k,
+                capacity_factor=moe_capacity_factor, activation=Swish(), mesh=moe_mesh)
+        else:
+            self.feed_forward = PositionwiseFeedForward(
+                d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = FastDropout(dropout_rate)
 
@@ -73,7 +89,10 @@ class ConformerEncoderLayer(nn.Module):
         if cnn_cache is not None:
             y, new_cnn_cache = y
         x = x + self.dropout(y)
-        x = x + 0.5 * self.dropout(self.feed_forward(self.norm_ff(x)))
+        y = self.norm_ff(x)
+        y = (self.feed_forward(y, mask_pad) if isinstance(self.feed_forward, MoEFeedForward)
+             else self.feed_forward(y))
+        x = x + 0.5 * self.dropout(y)
         out = self.norm_final(x)
         if streaming:
             return out, new_att_cache, new_cnn_cache if cnn_cache is not None else None
@@ -91,6 +110,16 @@ class ConformerEncoder(nn.Module):
     training step (``layers.remat_call``: the same dropout masks, running
     statistics moved once), as JAX's ``nn.remat`` per block; ``int8_ffn``
     runs every block's FFNs W8A8; ``norm_type`` is the conv module's norm.
+
+    ``moe_experts > 0`` makes every block's final FFN an
+    ``parallel.moe.MoEFeedForward`` (its experts split over ``moe_mesh``'s
+    ``model`` group when given). ``sp_mesh``: the blocks run on this rank's
+    frames of the ``seq`` group, self-attention through ring or Ulysses
+    attention (``sp_variant``), the conv module's halo from the other ranks'
+    frames; full-context attention only, and the subsampled length must be a
+    multiple of the group size (both raise otherwise). ``pipeline_mesh``: the
+    blocks run as a GPipe pipeline over its ``pipe`` group with
+    ``pipeline_microbatches`` microbatches, the masks cut alongside.
     """
 
     def __init__(self, input_dim=80, d_model=256, head_num=4, ffn_dim=2048,
@@ -98,8 +127,12 @@ class ConformerEncoder(nn.Module):
                  kernel_size=15, use_dynamic_chunk=False, static_chunk_size=0,
                  causal_conv=False, cmvn_mean=None, cmvn_istd=None,
                  use_dynamic_left_chunk=False, remat=False, int8_ffn=False,
-                 norm_type="layer_norm"):
+                 norm_type="layer_norm", moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_mesh=None, sp_mesh=None, sp_variant="ring",
+                 pipeline_mesh=None, pipeline_microbatches=4):
         super().__init__()
+        if pipeline_mesh is not None and moe_experts > 0:
+            raise ValueError("the pipeline runs dense blocks; it does not take MoE blocks")
         self.remat = remat
         self.d_model, self.head_num, self.kernel_size = d_model, head_num, kernel_size
         self.causal_conv = causal_conv
@@ -113,9 +146,26 @@ class ConformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, head_num, ffn_dim, dropout_rate,
                                   attention_dropout_rate, kernel_size, causal_conv,
-                                  norm_type=norm_type, int8_ffn=int8_ffn)
+                                  norm_type=norm_type, int8_ffn=int8_ffn,
+                                  moe_experts=moe_experts, moe_top_k=moe_top_k,
+                                  moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh)
             for _ in range(num_layers)
         )
+        self.sp_group = None if sp_mesh is None else sp_mesh.group("seq")
+        self.sp_size = 1 if sp_mesh is None else sp_mesh.size("seq")
+        self.pipeline_mesh, self.pipeline_microbatches = pipeline_mesh, pipeline_microbatches
+        for layer in self.layers:
+            if self.sp_group is not None:
+                layer.self_attn.sp = (self.sp_group, sp_variant)
+                layer.conv_module.sp_group = self.sp_group
+            # each rank's gradient is a part (its frames, its stage's blocks);
+            # the depthwise conv runs on the whole sequence on every rank
+            whole = set(layer.conv_module.depthwise_conv.parameters())
+            for p in layer.parameters():
+                if self.sp_group is not None and p not in whole:
+                    set_partial(p, "seq")
+                if pipeline_mesh is not None and pipeline_mesh.size("pipe") > 1:
+                    set_partial(p, "pipe")
 
     def forward(self, xs, xs_lens, decoding_chunk_size=0, num_decoding_left_chunks=-1,
                 chunk_generator=None):
@@ -126,6 +176,13 @@ class ConformerEncoder(nn.Module):
         # compute dtype = parameter dtype (the subsampling convs are never
         # swapped for int8 modules)
         xs, pos_emb = self.embed(xs.to(self.embed.conv1.weight.dtype))
+        if self.sp_group is not None:
+            if self.use_dynamic_chunk or self.static_chunk_size > 0:
+                raise ValueError("sequence parallelism requires full-context attention; "
+                                 "disable dynamic/static chunking")
+            if xs.shape[1] % self.sp_size:
+                raise ValueError(f"subsampled length {xs.shape[1]} not divisible by 'seq' "
+                                 f"axis size {self.sp_size}; pad the bucket")
 
         t_sub = xs.shape[1]
         sub_lens = ((xs_lens - 1) // 2 - 1) // 2
@@ -135,12 +192,34 @@ class ConformerEncoder(nn.Module):
             decoding_chunk_size, self.static_chunk_size, num_decoding_left_chunks,
             generator=chunk_generator)
         mask_pad = masks[:, 0, :]
-        for layer in self.layers:
+
+        def layer_fn(i, h, pos_emb, chunk_masks, mask_pad):
+            layer = self.layers[i]
             if self.remat:
-                xs = remat_call(layer, xs, chunk_masks, pos_emb, mask_pad)
-            else:
-                xs = layer(xs, chunk_masks, pos_emb, mask_pad)
+                return remat_call(layer, h, chunk_masks, pos_emb, mask_pad)
+            return layer(h, chunk_masks, pos_emb, mask_pad)
+
+        if self.sp_group is not None:
+            return self._sequence_parallel(layer_fn, xs, pos_emb, chunk_masks, masks)
+        if self.pipeline_mesh is not None:
+            xs = pipeline_apply(layer_fn, len(self.layers), xs, self.pipeline_mesh,
+                                num_microbatches=self.pipeline_microbatches,
+                                extras=(pos_emb,), batched_extras=(chunk_masks, mask_pad))
+            return xs, masks
+        for i in range(len(self.layers)):
+            xs = layer_fn(i, xs, pos_emb, chunk_masks, mask_pad)
         return xs, masks
+
+    def _sequence_parallel(self, layer_fn, xs, pos_emb, chunk_masks, masks):
+        """The blocks on this rank's frames of the ``seq`` group; the
+        frames are gathered back after the last block."""
+        g = self.sp_group
+        xs, pos_emb = scatter(xs, g, dim=1), scatter(pos_emb, g, dim=1)
+        local = scatter(masks, g, dim=2)
+        with batch_stat_axes("data", "seq"):
+            for i in range(len(self.layers)):
+                xs = layer_fn(i, xs, pos_emb, local, local[:, 0, :])
+        return all_gather(xs, g, dim=1, grad="slice"), masks
 
     def forward_chunk(self, xs, att_caches=None, cnn_caches=None, required_cache_size=-1):
         """Streaming: encode ONE raw-feature chunk with per-layer caches.
@@ -245,7 +324,7 @@ class TransformerDecoder(nn.Module):
                     & subsequent_mask(length, ys_in.device)[None])
         for layer in self.layers:
             x = layer(x, tgt_mask, memory, memory_mask)
-        return self.output_layer(self.after_norm(x))
+        return column_head(self.output_layer, self.after_norm(x))
 
     def forward_one_step(self, memory, memory_mask, ys):
         """Log-softmax (float32) of the last position's logits, for each

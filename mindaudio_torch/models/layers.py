@@ -25,6 +25,16 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import check_generator
 from ..ops.quant import int8_training_matmul
+from ..parallel.collectives import (
+    all_gather,
+    all_reduce_sum,
+    copy_to,
+    group_rank,
+    group_size,
+    reduce_from,
+    scatter,
+)
+from ..parallel.mesh import batch_stat_group
 
 __all__ = [
     "MASK_VALUE",
@@ -39,6 +49,8 @@ __all__ = [
     "lecun_normal_",
     "remat_call",
     "Int8Dense",
+    "row_parallel",
+    "column_head",
     "PositionwiseFeedForward",
     "MultiHeadedAttention",
     "RelPositionMultiHeadedAttention",
@@ -74,17 +86,28 @@ class FastDropout(nn.Module):
         self.rate = rate
         self.generator = generator
 
-    def forward(self, x):
+    def bits(self, shape, device):
+        """The uniform bytes of one draw of ``shape``, or ``None`` when the
+        dropout is inactive; :meth:`forward` takes them as ``bits``."""
+        thresh = int(round(self.rate * 256.0))
+        if not self.training or thresh <= 0 or thresh >= 256:
+            return None
+        if self.generator is None:
+            raise RuntimeError("FastDropout in training needs an explicit generator")
+        check_generator(self.generator, device, "FastDropout")
+        return torch.randint(0, 256, tuple(shape), generator=self.generator, device=device,
+                             dtype=torch.uint8)
+
+    def forward(self, x, bits=None):
+        """``bits``: bytes drawn by :meth:`bits` for ``x``'s shape (a caller
+        whose ranks must draw alike draws once, whatever each rank keeps)."""
         thresh = int(round(self.rate * 256.0))
         if not self.training or thresh <= 0:
             return x
         if thresh >= 256:
             return torch.zeros_like(x)
-        if self.generator is None:
-            raise RuntimeError("FastDropout in training needs an explicit generator")
-        check_generator(self.generator, x.device, "FastDropout")
-        bits = torch.randint(0, 256, x.shape, generator=self.generator,
-                             device=x.device, dtype=torch.uint8)
+        if bits is None:
+            bits = self.bits(x.shape, x.device)
         keep = bits >= thresh
         keep_prob = 1.0 - thresh / 256.0
         return torch.where(keep, x / keep_prob, 0.0)
@@ -137,6 +160,13 @@ class BatchNorm(nn.Module):
     ``var``; there is no ``num_batches_tracked``. ``axis=1`` normalizes a
     channels-first ``(B, C, T)`` tensor as flax does its ``(B, T, C)``
     transpose.
+
+    Under data parallelism (an active mesh whose ``data`` axis has several
+    ranks, ``parallel.mesh``) the batch mean and ``E[x^2]`` are averaged over
+    the group before the variance is formed, as GSPMD takes them over the
+    global batch: every rank then holds flax's statistics and running update
+    (each rank's batch has the same size). The gradient flows back through
+    the all-reduce.
     """
 
     def __init__(self, features, momentum=0.9, eps=1e-5, axis=-1):
@@ -153,8 +183,12 @@ class BatchNorm(nn.Module):
         shape = [-1 if d == axis else 1 for d in range(x.dim())]
         if self.training:
             axes = tuple(d for d in range(x.dim()) if d != axis)
-            mean = x.mean(axes)
-            var = torch.clamp_min(x.square().mean(axes) - mean.square(), 0.0)
+            mean, mean2 = x.mean(axes), x.square().mean(axes)
+            group = batch_stat_group()
+            if group is not None:  # the global batch's statistics, as GSPMD's
+                both = all_reduce_sum(torch.stack([mean, mean2]), group) / group_size(group)
+                mean, mean2 = both[0], both[1]
+            var = torch.clamp_min(mean2 - mean.square(), 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
@@ -246,13 +280,40 @@ class Int8Dense(nn.Linear):
     added in it.
     """
 
-    def forward(self, x):
+    def product(self, x):
+        """``x @ weight.T`` W8A8, without the bias."""
         if torch.is_autocast_enabled(x.device.type):
             x = x.to(torch.get_autocast_dtype(x.device.type))
-        y = int8_training_matmul(x, self.weight)
+        return int8_training_matmul(x, self.weight)
+
+    def forward(self, x):
+        y = self.product(x)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+def _product(linear, x):
+    """``linear``'s product without its bias (a row-parallel layer adds the
+    bias once, after the sum over the group)."""
+    return linear.product(x) if isinstance(linear, Int8Dense) else F.linear(x, linear.weight)
+
+
+def row_parallel(linear, x, group):
+    """Megatron's row-parallel layer: this rank's input slice times its
+    weight slice, summed over ``group`` (``reduce_from``), plus the bias."""
+    y = reduce_from(_product(linear, x), group)
+    return y + linear.bias.to(y.dtype) if linear.bias is not None else y
+
+
+def column_head(linear, x):
+    """A projection whose output may be split over ``linear.tp_group``
+    (column-parallel, ``parallel.shardings``): the slices are gathered, so
+    the caller sees the whole output (the CTC kernels take whole rows)."""
+    group = getattr(linear, "tp_group", None)
+    if group is None:
+        return linear(x)
+    return all_gather(linear(copy_to(x, group)), group, dim=-1, grad="slice")
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -268,8 +329,12 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = dense(hidden_units, d_model)
         self.activation = activation
         self.dropout = FastDropout(dropout_rate)
+        self.tp_group = None  # Megatron over the hidden units (parallel/shardings.py)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            h = self.dropout(self.activation(self.w_1(copy_to(x, self.tp_group))))
+            return row_parallel(self.w_2, h, self.tp_group)
         return self.w_2(self.dropout(self.activation(self.w_1(x))))
 
 
@@ -283,15 +348,19 @@ def _split_heads(x, head_num):
     return x.view(b, t, head_num, d // head_num).transpose(1, 2)
 
 
-def _attend(scores, value, mask, dropout, linear_out):
+def _merge_heads(out, linear_out, group):
+    b, h, t, d_k = out.shape
+    out = out.transpose(1, 2).reshape(b, t, h * d_k)
+    return linear_out(out) if group is None else row_parallel(linear_out, out, group)
+
+
+def _attend(scores, value, mask, dropout, linear_out, group=None):
     if mask is not None:
         if mask.dim() == 3:
             mask = mask[:, None]
         scores = apply_mask(scores, mask)
     attn = torch.softmax(scores.float(), dim=-1).to(value.dtype)
-    out = dropout(attn) @ value
-    b, h, t, d_k = out.shape
-    return linear_out(out.transpose(1, 2).reshape(b, t, h * d_k))
+    return _merge_heads(dropout(attn) @ value, linear_out, group)
 
 
 class MultiHeadedAttention(nn.Module):
@@ -306,13 +375,15 @@ class MultiHeadedAttention(nn.Module):
         self.linear_v = nn.Linear(d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
         self.dropout = FastDropout(dropout_rate)
+        self.tp_group = None  # Megatron over the heads (parallel/shardings.py)
 
     def forward(self, query, key, value, mask=None):
-        q = _split_heads(self.linear_q(query), self.head_num)
-        k = _split_heads(self.linear_k(key), self.head_num)
-        v = _split_heads(self.linear_v(value), self.head_num)
+        g, heads = self.tp_group, self.head_num // group_size(self.tp_group)
+        q = _split_heads(self.linear_q(copy_to(query, g)), heads)
+        k = _split_heads(self.linear_k(copy_to(key, g)), heads)
+        v = _split_heads(self.linear_v(copy_to(value, g)), heads)
         scores = (q @ k.transpose(-2, -1)) / _score_scale(q.shape[-1], q.dtype)
-        return _attend(scores, v, mask, self.dropout, self.linear_out)
+        return _attend(scores, v, mask, self.dropout, self.linear_out, g)
 
 
 class RelPositionMultiHeadedAttention(nn.Module):
@@ -338,24 +409,55 @@ class RelPositionMultiHeadedAttention(nn.Module):
         self.pos_bias_u = nn.Parameter(torch.zeros(head_num, d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(head_num, d_k))
         self.dropout = FastDropout(dropout_rate)
+        self.tp_group = None  # Megatron over the heads (parallel/shardings.py)
+        self.sp = None  # (group, variant): sequence-parallel attention
 
     def forward(self, query, key, value, mask=None, pos_emb=None, kv_cache=None):
-        q = _split_heads(self.linear_q(query), self.head_num)
-        k = _split_heads(self.linear_k(key), self.head_num)
-        v = _split_heads(self.linear_v(value), self.head_num)
+        g = self.tp_group
+        heads, first = self.head_num // group_size(g), group_rank(g) * (
+            self.head_num // group_size(g))
+        q = _split_heads(self.linear_q(copy_to(query, g)), heads)
+        k = _split_heads(self.linear_k(copy_to(key, g)), heads)
+        v = _split_heads(self.linear_v(copy_to(value, g)), heads)
         if kv_cache is not None:
             k = torch.cat([kv_cache[0].to(k.dtype), k], dim=2)
             v = torch.cat([kv_cache[1].to(v.dtype), v], dim=2)
-        p = _split_heads(self.linear_pos(pos_emb.to(q.dtype)), self.head_num)
+        if g is None:
+            p = self.linear_pos(pos_emb.to(q.dtype))
+        else:  # the JAX table keeps this bias whole: this rank's heads' slice of it
+            d_k = q.shape[-1]
+            p = F.linear(pos_emb.to(q.dtype), self.linear_pos.weight,
+                         self.linear_pos.bias[first * d_k:(first + heads) * d_k])
+        p = _split_heads(p, heads)
 
-        q_aug = torch.cat([q + self.pos_bias_u[None, :, None, :],
-                           q + self.pos_bias_v[None, :, None, :]], dim=-1)
+        u = self.pos_bias_u[first:first + heads]
+        vb = self.pos_bias_v[first:first + heads]
+        q_aug = torch.cat([q + u[None, :, None, :], q + vb[None, :, None, :]], dim=-1)
         k_aug = torch.cat([k, p.expand_as(k)], dim=-1)
+        if self.sp is not None and kv_cache is None:
+            return _merge_heads(self._sequence_parallel(q_aug, k_aug, v, mask),
+                                self.linear_out, g)
         scores = (q_aug @ k_aug.transpose(-2, -1)) / _score_scale(q.shape[-1], q.dtype)
-        out = _attend(scores, v, mask, self.dropout, self.linear_out)
+        out = _attend(scores, v, mask, self.dropout, self.linear_out, g)
         if kv_cache is not None:
             return out, (k, v)
         return out
+
+    def _sequence_parallel(self, q_aug, k_aug, v, mask):
+        """The augmented head through ring or Ulysses attention over the
+        ``seq`` group (this rank's frames; padding masks only, no attention
+        dropout), with the score scale ``d_k ** -0.5``."""
+        from ..parallel.ring_attention import ring_attention, ulysses_attention
+
+        if mask is not None and mask.shape[-2] != 1:
+            raise ValueError("sequence-parallel attention supports padding masks only "
+                             f"(got mask shape {tuple(mask.shape)}); disable dynamic/static "
+                             "chunking")
+        kv_valid = None if mask is None else mask.reshape(mask.shape[0], mask.shape[-1])
+        group, variant = self.sp
+        fn = {"ring": ring_attention, "ulysses": ulysses_attention}[variant]
+        return fn(q_aug, k_aug, v, group, kv_valid=kv_valid,
+                  scale=float(v.shape[-1]) ** -0.5)
 
 
 def sinusoid_table(max_len, d_model, dtype=np.float32):
@@ -430,12 +532,18 @@ class ConvolutionModule(nn.Module):
         self.kernel_size, self.causal = kernel_size, causal
         half = (kernel_size - 1) // 2
         self.pad = (kernel_size - 1, 0) if causal else (half, half)
+        # Megatron over the channels (parallel/shardings.py): this rank's
+        # GLU-paired slice of pointwise_conv1, its channels of the depthwise
+        # conv and the norm, its rows of pointwise_conv2
+        self.tp_group = None
+        self.sp_group = None  # sequence parallel: this rank's frames
 
     def forward(self, x, mask_pad=None, cache=None):
         # x: (B, T, C); mask_pad: (B, T) True = valid
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad[..., None], 0.0)
-        x = self.glu(self.pointwise_conv1(x))
+        g = self.tp_group
+        x = self.glu(self.pointwise_conv1(copy_to(x, g)))
         pad, new_cache = self.pad, None
         if cache is not None:
             if not self.causal:
@@ -443,14 +551,49 @@ class ConvolutionModule(nn.Module):
             x = torch.cat([cache.to(x.dtype), x], dim=1)
             new_cache = x[:, x.shape[1] - (self.kernel_size - 1):]
             pad = (0, 0)
-        x = self.depthwise_conv(F.pad(x.transpose(1, 2), pad)).transpose(1, 2)
-        x = self.norm(x)
-        x = self.pointwise_conv2(x * torch.sigmoid(x))
+        x = self._depthwise(x, pad)
+        x = self._norm(x)
+        x = x * torch.sigmoid(x)
+        x = self.pointwise_conv2(x) if g is None else row_parallel(self.pointwise_conv2, x, g)
         if mask_pad is not None:
             x = x.masked_fill(~mask_pad[..., None], 0.0)
         if new_cache is not None:
             return x, new_cache
         return x
+
+    def _channels(self):
+        n = group_size(self.tp_group)
+        c = self.depthwise_conv.weight.shape[0] // n
+        return group_rank(self.tp_group) * c, c
+
+    def _depthwise(self, x, pad):
+        conv, sp = self.depthwise_conv, self.sp_group
+        if sp is not None:  # the frames of the other ranks are the halo
+            # (every rank convolves the whole sequence and keeps its frames)
+            x = all_gather(x, sp, dim=1, grad="slice")
+        if self.tp_group is None:
+            y = conv(F.pad(x.transpose(1, 2), pad)).transpose(1, 2)
+        else:
+            c0, c = self._channels()
+            y = F.conv1d(F.pad(x.transpose(1, 2), pad), conv.weight[c0:c0 + c],
+                         conv.bias[c0:c0 + c], groups=c).transpose(1, 2)
+        return y if sp is None else scatter(y, sp, dim=1)
+
+    def _norm(self, x):
+        g = self.tp_group
+        if g is None:
+            return self.norm(x)
+        c0, c = self._channels()
+        if isinstance(self.norm, BatchNorm):  # per channel, on every rank: keep this rank's
+            return scatter(self.norm(all_gather(x, g, dim=-1, grad="slice")), g, dim=-1)
+        # LayerNorm over every channel: the mean and E[x^2] summed over the group
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = c * group_size(g)
+        both = all_reduce_sum(torch.stack([xf.sum(-1), xf.square().sum(-1)]), g) / n
+        mean, var = both[0][..., None], torch.clamp_min(both[1] - both[0].square(), 0.0)[..., None]
+        y = (xf - mean) * torch.rsqrt(var + self.norm.eps)
+        # float32 out, as an autocast LayerNorm gives
+        return y * self.norm.weight[c0:c0 + c] + self.norm.bias[c0:c0 + c]
 
 
 class Conv2dSubsampling4(nn.Module):

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import check_generator, resolve_device
+from ..parallel.mesh import data_max
 from .filterbanks import create_dct, get_window, kaldi_mel_banks, melscale_fbanks
 
 __all__ = ["set_precision", "precision_scope", "frame_signal", "stft", "istft", "spectrogram",
@@ -237,14 +238,19 @@ def amplitude_to_db(spec, stype="power", ref=1.0, amin=1e-10, top_db=80.0):
     The maximum is taken over the last three axes (the last two of a 2-D
     input), as in the JAX package: on a ``(B, n_mels, T)`` batch that is one
     maximum over the whole batch, so the floor of each row depends on the
-    loudest row beside it (ROADMAP queue 3).
+    loudest row beside it (ROADMAP queue 3). Under data parallelism that
+    batch is the global one: the maximum of a 3-D input is taken over the
+    active mesh's ``data`` group too (``parallel.mesh.data_max``).
     """
     multiplier = 10.0 if stype == "power" else 20.0
     db = multiplier * torch.log10(torch.clamp_min(spec, amin))
     db = db - multiplier * math.log10(max(amin, ref))
     if top_db is not None:
         dims = tuple(range(max(spec.dim() - 3, 0), spec.dim()))
-        db = torch.maximum(db, torch.amax(db, dim=dims, keepdim=True) - top_db)
+        peak = torch.amax(db, dim=dims, keepdim=True)
+        if spec.dim() == 3:
+            peak = data_max(peak)
+        db = torch.maximum(db, peak - top_db)
     return db
 
 

@@ -60,11 +60,14 @@ class BucketSampler:
     def __init__(self, utts: Sequence[Utt], frame_bucket_limit=DEFAULT_FRAME_BUCKETS,
                  batch_bucket_limit=DEFAULT_BATCH_BUCKETS, batch_factor: float = 1.0,
                  shuffle: bool = True, seed: int = 0, rank: int = 0,
-                 world_size: int = 1):
+                 world_size: int = 1, batch_multiple: int = 1):
         if len(frame_bucket_limit) != len(batch_bucket_limit):
             raise ValueError("BucketSampler: one batch size a frame bucket")
         self.frame_bucket_limit = list(frame_bucket_limit)
-        self.batch_bucket_limit = [max(1, int(b * batch_factor)) for b in batch_bucket_limit]
+        # a multiple of the data axis (times the microbatches), so every
+        # batch splits evenly, as in the JAX sampler
+        self.batch_bucket_limit = [max(batch_multiple, int(b * batch_factor) // batch_multiple
+                                       * batch_multiple) for b in batch_bucket_limit]
         self.shuffle, self.seed = shuffle, seed
         self.rank, self.world_size = rank, world_size
 
@@ -170,7 +173,7 @@ def collate(utts: Sequence[Utt], tokenizer: CharTokenizer, bucket_frames: int,
 def batch_iterator(manifest_csv: str, tokenizer: CharTokenizer, epochs: int = 1, seed: int = 0,
                    rank: int = 0, world_size: int = 1, speed_perturb: bool = True,
                    batch_factor: float = 1.0, max_label_len: int = 30,
-                   frame_bucket_limit=None, batch_bucket_limit=None):
+                   frame_bucket_limit=None, batch_bucket_limit=None, batch_multiple: int = 1):
     """Epoch-looped stream of ``(epoch, bucket_frames, batch dict)``; epoch
     ``e`` shuffles with seed ``seed + e``."""
     utts = read_manifest(manifest_csv)
@@ -181,7 +184,8 @@ def batch_iterator(manifest_csv: str, tokenizer: CharTokenizer, epochs: int = 1,
         buckets["batch_bucket_limit"] = [int(b) for b in batch_bucket_limit]
     for epoch in range(epochs):
         sampler = BucketSampler(utts, shuffle=True, seed=seed + epoch, rank=rank,
-                                world_size=world_size, batch_factor=batch_factor, **buckets)
+                                world_size=world_size, batch_factor=batch_factor,
+                                batch_multiple=batch_multiple, **buckets)
         rng = np.random.default_rng(seed + epoch)
         for bucket_idx, batch_utts in sampler:
             frames = sampler.frame_bucket_limit[bucket_idx]

@@ -42,6 +42,7 @@ from ... import resolve_device
 from ...data.librimix import separation_batch_iterator
 from ...loss.separation_loss import pit_si_snr_loss
 from ...models.conv_tasnet import ConvTasNet
+from ...parallel.mesh import active_mesh, barrier, init_mesh, make_mesh
 from ...train.checkpoint import CheckpointManager, model_state
 from ...train.config import get_config
 from ...train.log import get_logger
@@ -64,12 +65,16 @@ def parse_args(argv=None, default_config=DEFAULT_CONFIG):
 
 
 def check_supported(cfg):
-    """Raise ``NotImplementedError`` for data parallelism over several
-    processes, which the port does not have yet (ROADMAP queue 1 item 8)."""
+    """Raise ``ValueError`` when the processes of a data-parallel run
+    (``torchrun``'s ``WORLD_SIZE``, or the initialised group) do not split
+    ``data.batch_size``: the JAX iterators would silently drop the rows
+    left over, so a changed global batch would go unnoticed."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("data parallel over several processes is not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 8)")
+    world = (dist.get_world_size() if dist.is_available() and dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if int(cfg.data.batch_size) % world:
+        raise ValueError(f"data parallel over {world} processes: data.batch_size "
+                         f"{int(cfg.data.batch_size)} does not split evenly")
 
 
 def build_model(cfg, device):
@@ -102,17 +107,17 @@ def make_optimizer(cfg, model):
     return AdamW(model.named_parameters(), float(cfg.optim.lr), weight_decay=0.0)
 
 
-def make_step(cfg, model, optimizer, separate_fn=separate):
+def make_step(cfg, model, optimizer, separate_fn=separate, mesh=None):
     """``step(batch) -> {"loss", "grad_norm"}`` (device scalars) for a batch
     of ``mix (B, T)``, ``src (B, C, T)`` and ``lengths (B,)`` on the model's
-    device."""
+    device (this rank's rows of the global batch over ``mesh``)."""
     def objective(model, batch):
         loss, _ = pit_si_snr_loss(separate_fn(model, batch["mix"]), batch["src"],
                                   batch["lengths"])
         return loss, {}
 
     return make_train_step(model, optimizer, grad_clip_norm=float(cfg.optim.grad_clip),
-                           loss_fn=objective)
+                           loss_fn=objective, mesh=mesh)
 
 
 def checkpoint_state(model, step):
@@ -129,20 +134,24 @@ def train(cfg, device, model, separate_fn, logger_name):
     step of each log window (host clock over the ``log_every_steps`` steps
     before a log, which ends in the loss's read-back, with no save inside;
     the collate overlaps the steps through the prefetch thread), and the
-    trained model."""
+    trained model. Data parallel over the active mesh (``main`` builds it
+    with ``parallel.mesh.init_mesh`` before the model): each rank collates
+    its rows of the global batch, only rank 0 logs and writes."""
     check_supported(cfg)
+    mesh = active_mesh() or make_mesh()
     logger = get_logger(logger_name)
     model.train()
     optimizer = make_optimizer(cfg, model)
-    logger.info("params: %.3fM, device: %s",
-                sum(p.numel() for p in model.parameters()) / 1e6, device)
-    step_fn = make_step(cfg, model, optimizer, separate_fn)
+    logger.info("params: %.3fM, device: %s, processes: %d",
+                sum(p.numel() for p in model.parameters()) / 1e6, device, mesh.world_size)
+    step_fn = make_step(cfg, model, optimizer, separate_fn, mesh)
     to_device = ToDevice(device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep_max=int(cfg.train.keep_checkpoint_max))
     max_steps = int(cfg.train.max_steps)
     log_every, save_every = int(cfg.train.log_every_steps), int(cfg.train.save_every_steps)
     it = separation_batch_iterator(cfg.data.train_dir, int(cfg.data.batch_size),
-                                   segment_len(cfg), epochs=int(cfg.optim.epochs))
+                                   segment_len(cfg), epochs=int(cfg.optim.epochs),
+                                   rank=mesh.index("data"), world_size=mesh.size("data"))
 
     losses, window_ms = {}, []
     step_count, window = 0, None
@@ -168,6 +177,7 @@ def train(cfg, device, model, separate_fn, logger_name):
         if max_steps and step_count >= max_steps:
             break
     ckpt.save(checkpoint_state(model, step_count), step_count)
+    barrier()
     logger.info("done: %d steps", step_count)
     return {"steps": step_count, "losses": losses, "window_ms": window_ms, "model": model}
 
@@ -175,6 +185,8 @@ def train(cfg, device, model, separate_fn, logger_name):
 def main(argv=None):
     """Train as the config says; see :func:`train` for what is returned."""
     cfg, device = parse_args(argv)
+    check_supported(cfg)
+    device, _ = init_mesh(device)
     return train(cfg, device, build_model(cfg, device), separate, "conv_tasnet_torch")
 
 

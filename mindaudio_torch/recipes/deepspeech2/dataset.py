@@ -62,7 +62,8 @@ def _bucket_for(n_frames: int) -> int:
 
 
 def batch_iterator(manifest_json: str, batch_size: int, epochs: int = 1, seed: int = 0,
-                   shuffle: bool = True, drop_last: bool = True) -> Iterator[Tuple[int, dict]]:
+                   shuffle: bool = True, drop_last: bool = True, rank: int = 0,
+                   world_size: int = 1) -> Iterator[Tuple[int, dict]]:
     """``(epoch, batch)`` of bucketed raw audio, files sorted by size.
 
     Batches are consecutive groups of the size-sorted files, shuffled each
@@ -70,9 +71,11 @@ def batch_iterator(manifest_json: str, batch_size: int, epochs: int = 1, seed: i
     bucket*HOP) float32``, ``wav_lens``, ``labels (B, MAX_LABEL_LEN)``,
     ``label_lens``, all numpy; with ``drop_last=False`` the last batch is
     padded to ``batch_size`` by repeating its last row and every batch has
-    ``n_valid`` (the rows that are not repeats). This is the JAX
-    iterator on one process: its ``rank``/``world_size`` wait for the port's
-    data parallelism.
+    ``n_valid`` (the rows that are not repeats). With ``world_size > 1``
+    every rank walks the same batch sequence, takes the bucket from the
+    file headers of the whole group (the ranks agree on the global batch's
+    shape) and decodes its contiguous ``1 / world_size`` block of rows, as
+    the JAX iterator does.
     """
     samples = sorted(read_manifest(manifest_json), key=lambda p: os.path.getsize(p[0]))
     for epoch in range(epochs):
@@ -90,6 +93,10 @@ def batch_iterator(manifest_json: str, batch_size: int, epochs: int = 1, seed: i
             rng.shuffle(batches)
         for group in batches:
             tail_group = group is tail_group_obj
+            if world_size > 1:
+                max_frames = max([1] + [1 + io.info(w)[0] // HOP for w, _ in group])
+                local = len(group) // world_size
+                group = group[rank * local:(rank + 1) * local]
             wavs_raw, labels_raw = [], []
             for wav_path, txt_path in group:
                 x = np.asarray(io.read(wav_path)[0], np.float32)
@@ -97,7 +104,8 @@ def batch_iterator(manifest_json: str, batch_size: int, epochs: int = 1, seed: i
                     x = x[:, 0]
                 wavs_raw.append(x)
                 labels_raw.append(encode_transcript(txt_path))
-            max_frames = max([1] + [1 + len(x) // HOP for x in wavs_raw])
+            if world_size == 1:
+                max_frames = max([1] + [1 + len(x) // HOP for x in wavs_raw])
             wav_len = _bucket_for(max_frames) * HOP
             wavs = np.zeros((len(group), wav_len), np.float32)
             wav_lens = np.zeros((len(group),), np.int32)

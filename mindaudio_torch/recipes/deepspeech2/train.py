@@ -10,7 +10,10 @@ statistics as they were (``train/state.make_train_step``). Collate runs in a
 worker thread and its batch is copied to the card on a side stream while
 the previous step runs. A checkpoint holds the parameters, the running
 statistics and the step, as the JAX recipe's does (there is no resume, so
-the AdamW moments are not kept).
+the AdamW moments are not kept). Under ``torchrun --nproc_per_node N``
+the step is data parallel: each rank collates its rows of the global
+``data.batch_size`` batch, the batch norms take the global batch's
+statistics, and ``train.zero1_optimizer`` shards the moments (ZeRO-1).
 
 As in the JAX recipe, ``optim.bf16`` is not read: the model is float32.
 cuDNN's convolutions and LSTM use TF32 unless
@@ -20,6 +23,7 @@ Usage::
 
     python -m mindaudio_torch.recipes.deepspeech2.train [--config deepspeech2.yaml] \\
         [--device cuda] [--train.max_steps 100] [--data.train_manifest ...] ...
+    torchrun --nproc_per_node 2 -m mindaudio_torch.recipes.deepspeech2.train ...
 
 ``--config`` defaults to the ``deepspeech2.yaml`` beside this file and
 ``--device`` to ``cuda``; the CPU runs only when asked for.
@@ -43,6 +47,7 @@ from ...train.config import get_config
 from ...train.log import get_logger
 from ...train.optim import AdamW
 from ...train.prefetch import ToDevice, prefetch
+from ...parallel.mesh import init_mesh
 from ...train.state import make_train_step
 from .dataset import BLANK_ID, HOP, LABELS, N_FFT, batch_iterator
 
@@ -58,18 +63,6 @@ def parse_args(argv=None):
     parser.add_argument("--device", default="cuda")
     args, _ = parser.parse_known_args(argv)
     return get_config(args.config, argv), resolve_device(args.device)
-
-
-def check_supported(cfg):
-    """Raise ``NotImplementedError`` for the parallel settings, which the
-    port does not have yet (ROADMAP queue 1 item 8)."""
-    dist = torch.distributed
-    if bool(cfg.train.get("zero1_optimizer", False)):
-        raise NotImplementedError("train.zero1_optimizer is not ported to PyTorch yet "
-                                  "(ROADMAP queue 1 item 8)")
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("data parallel over several processes is not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 8)")
 
 
 def build_model(cfg, device):
@@ -104,18 +97,24 @@ def ctc_objective(model, batch):
                     blank_id=BLANK_ID), {}
 
 
-def make_optimizer(cfg, model):
-    """``optax.adamw(lr, weight_decay=...)`` with its defaults: float32 moments."""
+def make_optimizer(cfg, model, mesh=None):
+    """``optax.adamw(lr, weight_decay=...)`` with its defaults: float32
+    moments, sharded over ``mesh``'s ``data`` group with
+    ``train.zero1_optimizer``."""
+    zero1 = bool(cfg.train.get("zero1_optimizer", False)) and mesh is not None
     return AdamW(model.named_parameters(), float(cfg.optim.lr),
-                 weight_decay=float(cfg.optim.weight_decay))
+                 weight_decay=float(cfg.optim.weight_decay),
+                 zero1_group=mesh.group("data") if zero1 else None)
 
 
-def make_step(cfg, model, optimizer):
+def make_step(cfg, model, optimizer, mesh=None):
     """``step(batch) -> {"loss", "grad_norm"}`` (device scalars) for a batch
-    of ``wavs``, ``wav_lens``, ``labels`` and ``label_lens`` on the card."""
+    of ``wavs``, ``wav_lens``, ``labels`` and ``label_lens`` on the card
+    (this rank's rows of the global batch over ``mesh``)."""
     return make_train_step(model, optimizer,
                            lambda b: device_features(b["wavs"], b["wav_lens"]),
-                           grad_clip_norm=float(cfg.optim.grad_clip), loss_fn=ctc_objective)
+                           grad_clip_norm=float(cfg.optim.grad_clip), loss_fn=ctc_objective,
+                           mesh=mesh)
 
 
 def checkpoint_state(model, step):
@@ -132,19 +131,20 @@ def main(argv=None):
     (host clock over the ``log_every_steps`` steps before a log, which ends
     in the loss's read-back, with no save inside)."""
     cfg, device = parse_args(argv)
-    check_supported(cfg)
+    device, mesh = init_mesh(device)
     logger = get_logger("deepspeech2_torch")
     model = build_model(cfg, device).train()
-    optimizer = make_optimizer(cfg, model)
-    logger.info("params: %.2fM, device: %s",
-                sum(p.numel() for p in model.parameters()) / 1e6, device)
-    step_fn = make_step(cfg, model, optimizer)
+    optimizer = make_optimizer(cfg, model, mesh)
+    logger.info("params: %.2fM, device: %s, mesh: %s",
+                sum(p.numel() for p in model.parameters()) / 1e6, device, mesh.shape)
+    step_fn = make_step(cfg, model, optimizer, mesh)
     to_device = ToDevice(device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep_max=int(cfg.train.keep_checkpoint_max))
     max_steps = int(cfg.train.max_steps)
     log_every, save_every = int(cfg.train.log_every_steps), int(cfg.train.save_every_steps)
     it = batch_iterator(cfg.data.train_manifest, int(cfg.data.batch_size),
-                        epochs=int(cfg.optim.epochs))
+                        epochs=int(cfg.optim.epochs), rank=mesh.index("data"),
+                        world_size=mesh.size("data"))
 
     losses, buckets, window_ms = {}, {}, []
     step_count, window = 0, None

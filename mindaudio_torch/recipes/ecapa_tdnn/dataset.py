@@ -100,12 +100,14 @@ def load_segment(row, seg_len: int, rng: Optional[np.random.Generator] = None) -
 
 def batch_iterator(csv_path: str, batch_size: int, seg_dur: float = 3.0, epochs: int = 1,
                    seed: int = 0, augmenter: Optional[Augmenter] = None,
-                   shuffle: bool = True) -> Iterator[tuple]:
+                   shuffle: bool = True, rank: int = 0,
+                   world_size: int = 1) -> Iterator[tuple]:
     """``(epoch, {"wavs": (B, L) float32, "labels": (B,) int32})``: each
     epoch's rows shuffled by ``default_rng(seed + epoch)`` (which also draws
-    the crops), the last partial batch dropped. This is the JAX iterator on
-    one process: its ``rank``/``world_size`` wait for the port's data
-    parallelism."""
+    the crops), the last partial batch dropped. With ``world_size > 1``
+    every rank walks the same batch sequence and loads its contiguous
+    ``1 / world_size`` block of rows (its crops and augmentation drawn from
+    its own stream), as the JAX iterator does."""
     rows, spk2label = read_segments(csv_path)
     seg_len = int(seg_dur * SAMPLE_RATE)
     for epoch in range(epochs):
@@ -113,6 +115,9 @@ def batch_iterator(csv_path: str, batch_size: int, seg_dur: float = 3.0, epochs:
         order = rng.permutation(len(rows)) if shuffle else np.arange(len(rows))
         sel = order[: (len(order) // batch_size) * batch_size].reshape(-1, batch_size)
         for batch_idx in sel:
+            if world_size > 1:
+                local = batch_size // world_size
+                batch_idx = batch_idx[rank * local:(rank + 1) * local]
             wavs = np.stack([load_segment(rows[i], seg_len, rng=rng) for i in batch_idx])
             labels = np.asarray([spk2label[rows[i]["spk_id"]] for i in batch_idx], np.int32)
             if augmenter is not None:

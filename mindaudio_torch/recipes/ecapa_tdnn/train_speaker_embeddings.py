@@ -49,6 +49,9 @@ from ... import resolve_device
 from ...loss.aam_softmax import aam_softmax_loss
 from ...models.ecapa_tdnn import Classifier, EcapaTDNN
 from ...ops.spectral import fbank
+from ...parallel.collectives import all_reduce, group_size
+from ...parallel.mesh import barrier, init_mesh
+from ...parallel.shardings import sync_grads
 from ...scheduler.schedules import cyclic_triangular_lr
 from ...train.checkpoint import CheckpointManager, model_state
 from ...train.config import get_config
@@ -57,6 +60,7 @@ from ...train.optim import AdamW
 from ...train.prefetch import ToDevice, prefetch
 from ...train.state import clip_by_global_norm
 from ...utils.mask import make_non_pad_mask
+from ..conv_tasnet.train import check_supported as separation_check
 from .dataset import Augmenter, batch_iterator, n_speakers
 
 __all__ = ["SpeakerNet", "FBANK_N_FFT", "FBANK_HOP", "extract_features", "parse_args",
@@ -125,12 +129,9 @@ def parse_args(argv=None):
 
 
 def check_supported(cfg):
-    """Raise ``NotImplementedError`` for data parallelism over several
-    processes, which the port does not have yet (ROADMAP queue 1 item 8)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("data parallel over several processes is not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 8)")
+    """Raise ``ValueError`` when the processes of a data-parallel run do not
+    split ``data.batch_size`` (``conv_tasnet.train.check_supported``)."""
+    separation_check(cfg)
 
 
 def build_model(cfg, device, n_classes):
@@ -150,12 +151,16 @@ def make_optimizer(cfg, model):
     return AdamW(model.named_parameters(), schedule, weight_decay=float(cfg.optim.weight_decay))
 
 
-def make_step(cfg, model, optimizer):
+def make_step(cfg, model, optimizer, mesh=None):
     """``step(batch) -> {"loss", "acc", "grad_norm"}`` (device scalars) for a
     batch of ``wavs (B, L)`` and ``labels (B,)`` on the model's device, with
     the JAX recipe's update rule (see the module docstring). Nothing in a
-    step reads a value back to the host."""
+    step reads a value back to the host. Over ``mesh`` the batch is this
+    rank's rows of the global one: the gradients and the metrics are the
+    global batch's (averaged over ``data``), the batch norms' statistics and
+    the fbank's 80 dB floor too."""
     params = optimizer.params
+    data = None if mesh is None else mesh.group("data")
     n_mels, clip = int(cfg.features.n_mels), float(cfg.optim.grad_clip)
     margin, scale = float(cfg.optim.margin), float(cfg.optim.scale)
 
@@ -166,12 +171,14 @@ def make_step(cfg, model, optimizer):
         labels = batch["labels"]
         loss = aam_softmax_loss(cosine, labels, margin=margin, scale=scale)
         grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        grads = sync_grads(params, grads, mesh)
         # the clip scale is finite, so a clipped element is finite exactly
         # where the gradient was; the others become 0
         grads, gnorm = clip_by_global_norm(list(grads), clip)
         optimizer.step([torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for g in grads])
         acc = (cosine.detach().argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "acc": acc, "grad_norm": gnorm}
+        both = all_reduce(torch.stack([loss.detach(), acc]), data) / group_size(data)
+        return {"loss": both[0], "acc": both[1], "grad_norm": gnorm}
 
     return step
 
@@ -185,20 +192,22 @@ def main(argv=None):
     steps through the prefetch thread), and the trained ``SpeakerNet``."""
     cfg, device = parse_args(argv)
     check_supported(cfg)
+    device, mesh = init_mesh(device)
     logger = get_logger("ecapa_torch")
     n_cls = n_speakers(cfg.data.train_csv)
     model = build_model(cfg, device, n_cls).train()
     optimizer = make_optimizer(cfg, model)
-    logger.info("speakers: %d, params: %.2fM, device: %s", n_cls,
-                sum(p.numel() for p in model.parameters()) / 1e6, device)
-    step_fn = make_step(cfg, model, optimizer)
+    logger.info("speakers: %d, params: %.2fM, device: %s, processes: %d", n_cls,
+                sum(p.numel() for p in model.parameters()) / 1e6, device, mesh.world_size)
+    step_fn = make_step(cfg, model, optimizer, mesh)
     to_device = ToDevice(device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep_max=int(cfg.train.keep_checkpoint_max))
     max_steps = int(cfg.train.max_steps)
     log_every, save_every = int(cfg.train.log_every_steps), int(cfg.train.save_every_steps)
     it = batch_iterator(cfg.data.train_csv, int(cfg.data.batch_size),
                         seg_dur=float(cfg.data.seg_dur), epochs=int(cfg.optim.epochs),
-                        augmenter=Augmenter(cfg, np.random.default_rng(0)))
+                        augmenter=Augmenter(cfg, np.random.default_rng(0)),
+                        rank=mesh.index("data"), world_size=mesh.size("data"))
 
     losses, window_ms = {}, []
     step_count, window = 0, None
@@ -221,6 +230,7 @@ def main(argv=None):
         if max_steps and step_count >= max_steps:
             break
     ckpt.save(model_state(model), step_count)
+    barrier()
     logger.info("done: %d steps", step_count)
     return {"steps": step_count, "losses": losses, "window_ms": window_ms, "model": model}
 

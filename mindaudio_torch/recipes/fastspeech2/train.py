@@ -51,6 +51,7 @@ from ...train.log import get_logger
 from ...train.optim import AdamW
 from ...train.prefetch import ToDevice, prefetch
 from ...train.state import make_train_step
+from ...parallel.mesh import barrier, init_mesh
 from ..conv_tasnet.train import check_supported
 from .dataset import batch_iterator
 from .text import vocab_size
@@ -106,18 +107,19 @@ def make_optimizer(cfg, net):
     return AdamW(net.named_parameters(), schedule, weight_decay=0.0)
 
 
-def make_step(cfg, net, optimizer):
+def make_step(cfg, net, optimizer, mesh=None):
     """``step(batch) -> {"loss", "mel", "dur", "pitch", "energy",
     "grad_norm"}`` (device scalars) for a batch of ``phonemes``,
     ``src_lens``, ``mel``, ``pitch``, ``energy`` and ``duration`` on the
-    model's device."""
+    model's device (this rank's rows of the global batch over ``mesh``; the
+    loss's masked means divide by the global batch's counts)."""
     def objective(net, batch):
         total, mel, dur, pitch, energy = net(batch["phonemes"], batch["src_lens"], batch["mel"],
                                              batch["pitch"], batch["energy"], batch["duration"])
         return total, {"mel": mel, "dur": dur, "pitch": pitch, "energy": energy}
 
     return make_train_step(net, optimizer, grad_clip_norm=float(cfg.optim.grad_clip),
-                           loss_fn=objective)
+                           loss_fn=objective, mesh=mesh)
 
 
 def checkpoint_state(net, step):
@@ -126,11 +128,14 @@ def checkpoint_state(net, step):
     return {**model_state(net), "step": torch.tensor(step, dtype=torch.int32)}
 
 
-def batches(cfg):
-    """The recipe's batch iterator over ``data.feature_dir``."""
+def batches(cfg, mesh=None):
+    """The recipe's batch iterator over ``data.feature_dir`` (this rank's
+    rows over ``mesh``)."""
     d = cfg.data
+    index, n = (0, 1) if mesh is None else (mesh.index("data"), mesh.size("data"))
     return batch_iterator(d.feature_dir, int(d.batch_size), int(d.max_phoneme_len),
-                          int(d.max_mel_len), epochs=int(cfg.optim.epochs))
+                          int(d.max_mel_len), epochs=int(cfg.optim.epochs), rank=index,
+                          world_size=n)
 
 
 def train(cfg, device, init_seed=INIT_SEED):
@@ -141,19 +146,22 @@ def train(cfg, device, init_seed=INIT_SEED):
     inside; the collate overlaps the steps through the prefetch thread), the
     trained ``FastSpeech2`` and its ``FastSpeech2WithLoss``."""
     check_supported(cfg)
+    device, mesh = init_mesh(device)
     logger = get_logger(LOGGER)
     fs2, net = build_model(cfg, device, init_seed)
     net.train()
-    fs2.set_dropout_generator(torch.Generator(device=device).manual_seed(DROPOUT_SEED))
+    # the ranks' rows differ, so do their dropout streams
+    fs2.set_dropout_generator(torch.Generator(device=device).manual_seed(
+        DROPOUT_SEED + mesh.index("data")))
     optimizer = make_optimizer(cfg, net)
-    logger.info("params: %.3fM, device: %s", sum(p.numel() for p in net.parameters()) / 1e6,
-                device)
-    step_fn = make_step(cfg, net, optimizer)
+    logger.info("params: %.3fM, device: %s, processes: %d",
+                sum(p.numel() for p in net.parameters()) / 1e6, device, mesh.world_size)
+    step_fn = make_step(cfg, net, optimizer, mesh)
     to_device = ToDevice(device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep_max=int(cfg.train.keep_checkpoint_max))
     max_steps = int(cfg.train.max_steps)
     log_every, save_every = int(cfg.train.log_every_steps), int(cfg.train.save_every_steps)
-    it = batches(cfg)
+    it = batches(cfg, mesh)
 
     losses, window_ms = {}, []
     step_count, window, t0 = 0, None, time.time()
@@ -181,6 +189,7 @@ def train(cfg, device, init_seed=INIT_SEED):
         if max_steps and step_count >= max_steps:
             break
     ckpt.save(checkpoint_state(net, step_count), step_count)
+    barrier()
     logger.info("done: %d steps", step_count)
     return {"steps": step_count, "losses": losses, "window_ms": window_ms, "model": fs2,
             "net": net}

@@ -23,6 +23,7 @@ import torch
 from torch.nn import functional as F
 
 from ...models.tasnet import TasNet
+from ...parallel.mesh import init_mesh
 from ..conv_tasnet import train as conv_train
 
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tasnet.yaml")
@@ -57,6 +58,8 @@ def main(argv=None):
     """Train as the config says; returns what ``conv_tasnet.train.train``
     returns."""
     cfg, device = parse_args(argv)
+    conv_train.check_supported(cfg)
+    device, _ = init_mesh(device)
     return conv_train.train(cfg, device, build_model(cfg, device), separate_full,
                             "tasnet_torch")
 

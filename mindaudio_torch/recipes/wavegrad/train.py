@@ -52,6 +52,7 @@ from ...train.log import get_logger
 from ...train.optim import AdamW
 from ...train.prefetch import ToDevice, prefetch
 from ...train.state import make_train_step
+from ...parallel.mesh import barrier, init_mesh
 from ..conv_tasnet.train import check_supported
 from ..fastspeech2.train import use_float32
 
@@ -146,26 +147,41 @@ def draw_step(generator, audio, levels):
     return noisy, noise, scale, s
 
 
-def make_step(cfg, net, optimizer, generator):
+def make_step(cfg, net, optimizer, generator, mesh=None):
     """``step(batch) -> {"loss", "grad_norm"}`` (device scalars) for a batch
     of ``mel`` and ``audio`` on the model's device; the diffusion draws come
-    from ``generator``."""
+    from ``generator``. Over ``mesh`` the batch is this rank's rows of the
+    global one: every rank (its generator seeded alike) draws the global
+    batch's level, scales and noise and keeps its rows, so a data-parallel
+    step diffuses as the one-process step on the global batch does."""
     levels = schedule_levels(cfg, optimizer.params[0].device)
+    index, n = (0, 1) if mesh is None else (mesh.index("data"), mesh.size("data"))
 
     def objective(net, batch):
-        noisy, noise, scale, _ = draw_step(generator, batch["audio"], levels)
+        audio = batch["audio"]
+        if n == 1:
+            noisy, noise, scale, _ = draw_step(generator, audio, levels)
+        else:
+            b = audio.shape[0]
+            _, noise, scale, _ = draw_step(
+                generator, audio.new_zeros((n * b,) + audio.shape[1:]), levels)
+            noise, scale = noise[index * b:(index + 1) * b], scale[index * b:(index + 1) * b]
+            noisy = scale[:, None] * audio + torch.sqrt(1.0 - scale[:, None] ** 2) * noise
         return net(batch["mel"], noisy, scale, noise), {}
 
     return make_train_step(net, optimizer, grad_clip_norm=float(cfg.optim.grad_clip),
-                           loss_fn=objective)
+                           loss_fn=objective, mesh=mesh)
 
 
-def crop_iterator(cfg, batch_size, epochs, seed=0):
+def crop_iterator(cfg, batch_size, epochs, seed=0, rank=0, world_size=1):
     """Random ``(mel, audio)`` crops of ``data.crop_frames`` frames, as
     ``(epoch, {"mel", "audio"})`` batches: the JAX recipe's stream. Each
     epoch's ``default_rng(seed + epoch)`` draws the order and then, per
     utterance longer than the crop, its offset; a shorter one is padded
-    with zeros. ``data.cache_features`` keeps the decoded files in memory."""
+    with zeros. ``data.cache_features`` keeps the decoded files in memory.
+    With ``world_size > 1`` every rank walks the same batch sequence and
+    loads its contiguous ``1 / world_size`` block of rows, drawing its
+    offsets from its own stream, as the JAX recipe does."""
     feature_dir = cfg.data.feature_dir
     with open(os.path.join(feature_dir, "train.txt"), encoding="utf-8") as f:
         utts = [line.strip() for line in f if line.strip()]
@@ -186,6 +202,9 @@ def crop_iterator(cfg, batch_size, epochs, seed=0):
         order = rng.permutation(len(utts))
         sel = order[: (len(order) // batch_size) * batch_size].reshape(-1, batch_size)
         for batch_idx in sel:
+            if world_size > 1:
+                local = batch_size // world_size
+                batch_idx = batch_idx[rank * local:(rank + 1) * local]
             mel = np.zeros((len(batch_idx), crop, int(cfg.data.n_mels)), np.float32)
             audio = np.zeros((len(batch_idx), crop * hop), np.float32)
             for i, u in enumerate(batch_idx):
@@ -216,19 +235,21 @@ def train(cfg, device, init_seed=INIT_SEED):
     prefetch thread), the trained ``WaveGrad`` and its
     ``WaveGradWithLoss``."""
     check_supported(cfg)
+    device, mesh = init_mesh(device)
     logger = get_logger(LOGGER)
     wg, net = build_model(cfg, device, init_seed)
     net.train()
     optimizer = make_optimizer(cfg, net)
-    logger.info("params: %.3fM, device: %s", sum(p.numel() for p in net.parameters()) / 1e6,
-                device)
+    logger.info("params: %.3fM, device: %s, processes: %d",
+                sum(p.numel() for p in net.parameters()) / 1e6, device, mesh.world_size)
     step_fn = make_step(cfg, net, optimizer,
-                        torch.Generator(device=device).manual_seed(DIFFUSION_SEED))
+                        torch.Generator(device=device).manual_seed(DIFFUSION_SEED), mesh)
     to_device = ToDevice(device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep_max=int(cfg.train.keep_checkpoint_max))
     max_steps = int(cfg.train.max_steps)
     log_every, save_every = int(cfg.train.log_every_steps), int(cfg.train.save_every_steps)
-    it = crop_iterator(cfg, int(cfg.data.batch_size), int(cfg.optim.epochs))
+    it = crop_iterator(cfg, int(cfg.data.batch_size), int(cfg.optim.epochs),
+                       rank=mesh.index("data"), world_size=mesh.size("data"))
 
     losses, window_ms = {}, []
     step_count, window, t0 = 0, None, time.time()
@@ -251,6 +272,7 @@ def train(cfg, device, init_seed=INIT_SEED):
         if max_steps and step_count >= max_steps:
             break
     ckpt.save(checkpoint_state(net, step_count), step_count)
+    barrier()
     logger.info("done: %d steps", step_count)
     return {"steps": step_count, "losses": losses, "window_ms": window_ms, "model": wg,
             "net": net}

@@ -339,10 +339,15 @@ def test_model_state_round_trip(tmp_path):
 
 
 def test_parallel_settings_raise():
+    """ZeRO-1 needs the mesh of several processes: without one (a single
+    process) the moments stay whole; the parallel runs themselves are in
+    ``test_torch_parallel_ds2.py``."""
     cfg, _ = ttrain.parse_args(TOY + ["--device", "cpu"])
     cfg.train["zero1_optimizer"] = True
-    with pytest.raises(NotImplementedError, match="zero1"):
-        ttrain.check_supported(cfg)
+    model = ttrain.build_model(cfg, "cpu")
+    opt = ttrain.make_optimizer(cfg, model)
+    assert opt.zero1_group is None
+    assert opt._mu.numel() == sum(p.numel() for p in model.parameters())
 
 
 def test_train_and_eval_end_to_end(monkeypatch, tmp_path):

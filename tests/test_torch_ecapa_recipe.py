@@ -529,11 +529,16 @@ def test_one_step_matches_the_jax_recipe_and_a_nan_batch(jax_recipe, corpus, mon
 
 
 def test_check_supported_refuses_several_processes(monkeypatch):
+    """Several processes run data parallel, but only over a global batch
+    they split evenly."""
     cfg, _ = ttse.parse_args(TOY + ["--device", "cpu"])
     ttse.check_supported(cfg)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    cfg.data["batch_size"] = 4
+    ttse.check_supported(cfg)
+    cfg.data["batch_size"] = 3
+    with pytest.raises(ValueError, match="data parallel"):
         ttse.check_supported(cfg)
 
 

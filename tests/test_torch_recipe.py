@@ -24,7 +24,7 @@ path and removed from ``sys.modules`` (and their directory from
   and ``predict.main()`` decodes the best-2 average;
 - ``--model.remat`` and ``--model.int8_ffn`` train and save, and their
   checkpoints load into the float model;
-- settings the port cannot honour raise ``NotImplementedError``;
+- (the parallel settings run in ``test_torch_parallel_recipes.py``);
 - streaming decode (``decode.mode: streaming``) matches the JAX recipe's
   on a causal-conv model, and raises on a model without one.
 """
@@ -392,19 +392,6 @@ def test_remat_and_int8_ffn_train_and_save(corpus, tmp_path, flag):
     tok = CharTokenizer.from_file(cfg.data.vocab_file)
     plain, _ = ttrain.parse_args(_args(corpus, 0, "--device", "cpu"))
     ttrain.load_params(ttrain.build_model(plain, tok.vocab_size, "cpu"), params)
-
-
-@pytest.mark.parametrize("flag,value,item", [
-    ("--model.moe_experts", "4", "queue 1 item 8"),
-    ("--train.mesh_model_axis", "2", "queue 1 item 8"),
-    ("--train.pipeline_stages", "2", "queue 1 item 8"),
-    ("--train.zero1_optimizer", "true", "queue 1 item 8"),
-])
-def test_what_the_port_cannot_honour_raises(corpus, tmp_path, flag, value, item):
-    argv = _args(corpus, 2, "--device", "cpu", "--train.ckpt_dir", str(tmp_path), flag, value)
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(argv)
-    assert not os.listdir(tmp_path)
 
 
 def test_streaming_decode_raises(corpus):

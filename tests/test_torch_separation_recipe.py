@@ -370,11 +370,16 @@ def test_train_and_eval_end_to_end(corpus, tmp_path, model):
 
 
 def test_check_supported_refuses_several_processes(monkeypatch):
+    """Several processes run data parallel, but only over a global batch
+    they split evenly."""
     cfg, _ = tct_train.parse_args(["--device", "cpu"])
     tct_train.check_supported(cfg)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    cfg.data["batch_size"] = 4
+    tct_train.check_supported(cfg)
+    cfg.data["batch_size"] = 3
+    with pytest.raises(ValueError, match="data parallel"):
         tct_train.check_supported(cfg)
 
 

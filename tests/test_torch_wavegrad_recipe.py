@@ -304,10 +304,14 @@ def test_fastspeech2_vocoder_leg_refuses_another_hop(tmp_path, monkeypatch):
 
 
 def test_data_parallel_is_refused(monkeypatch):
+    """Data parallel runs (``test_torch_parallel_recipes2.py``) take a
+    global batch the processes split evenly; another is refused before
+    anything is built."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     cfg, _, _ = ttrain.parse_args(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    cfg.data["batch_size"] = 3
+    with pytest.raises(ValueError, match="data parallel"):
         ttrain.train(cfg, torch.device("cpu"))
 
 
