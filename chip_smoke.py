@@ -42,23 +42,30 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
 5. run the CTC chain-latency ladder (``csrc/ctc_probe.cu``: the least
    latency of one dependent step of the recursion, then what shared memory
    and a barrier, a log-prob load one step ahead and a store of the row each
-   add), one line per rung; then hold the CTC forward and backward kernels
+   add; and, at DeepSpeech2's (64, 626, 701), the band path's step: 11 warps
+   a sequence passing edge states through a ring), one line per rung; then
+   hold the CTC forward and backward kernels
    against the plain PyTorch recursion, in value and in gradient at
    ``logp_ext`` and at the logits, at the flagship train shape, the recipe's
    longest labels, the long bucket and the edge cases (ragged lengths with
    repeated labels, an empty label, ``T = 2L+1``, full length, blank as the
    last class, one frame, S = 63/65/127/129 at the lane and register edges,
-   S = 255/257 at the one-warp path's end, S = 1201 and 12001 on the block
-   path, rows that cannot be aligned (a loss near 1e5) on both paths,
-   B = 5, T not a multiple of the chunk and shorter than one, a zero
-   length beside a full one, lengths that differ per row) and DeepSpeech2's
-   train shapes on the block path (B = 64, S = 701, T' = 626 and 1001, ragged
-   lengths, 80-350 labels), printing each case's launch plan; time forward
-   and backward at the train shapes (the Conformer's three and DeepSpeech2's
-   two), the plain version and ``F.ctc_loss``'s device time (the yardstick,
-   never called by the port), beside the byte bound and the chain floor (the
-   longest length times the ladder's least measured step latency; for the
-   block path also times rung (d), the block kernels' step);
+   S = 255/257 at the one-warp path's end, the band path's edges (S = 319,
+   321, 767, 769 and 1023, where its warps change), S = 1025, 1201 and
+   12001 on the block path, rows that cannot be aligned (a loss near 1e5)
+   on every path, B = 5, T not a multiple of the chunk and shorter than one,
+   a zero length beside a full one, both at S = 701 too, lengths that differ
+   per row) and DeepSpeech2's train shapes on the band path (B = 64, S = 701,
+   T' = 626 and 1001, ragged lengths, 80-350 labels), printing each case's
+   launch plan; time forward and backward at the train shapes (the
+   Conformer's three and DeepSpeech2's two), the plain version and
+   ``F.ctc_loss``'s device time (the yardstick, never called by the port),
+   beside the byte bound and the chain floor (the longest length times the
+   ladder's least measured step latency, rung (a); for the band path also
+   times rung (e), its own step at S = 701) and, for DeepSpeech2's shapes,
+   the first design's block kernels, held against the plain version and
+   timed on the same inputs in this run (PR 8's reading of them,
+   ``BLOCK_PATH_MS``, logged beside);
 6. hold the fused log-mel kernel (three TF32 tensor-core passes) against its
    plain version at both precisions: at the bench shape ``(128, 160000)``,
    at the FastSpeech2 and WaveGrad front ends at ``(16, 220500)`` (the
@@ -119,7 +126,7 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    utterances up to the 3500 bucket), ``train.main()`` for 20 steps at B = 64
    with a save every 10, and ``eval.main()`` (CER/WER printed, not judged).
    Every loss must be finite, the last loss in the first step's bucket below
-   the first, and the CTC kernels (the block path, S = 701) must launch once
+   the first, and the CTC kernels (the band path, S = 701) must launch once
    forward and once backward a step. Prints ms per step at the 1250 bucket
    (host clock, ten steps ending in a read-back) with cuDNN's TF32 off and
    on, the peak memory and the bytes of a checkpoint; then holds one float32
@@ -597,7 +604,9 @@ def ctc_case(name, gen):
     if name == "single_frame":
         return draw(2, 1, 1, 5, llens=[1, 0])
     # the one-warp kernel's lane and register edges (S = 63, 65, 127, 129),
-    # its last width and the block path's first (S = 255, 257), and S = 1201
+    # its last width and the band path's first (S = 255, 257), the band
+    # path's edges where its warps change (319/321: 5 to 6 warps; 767/769: 12
+    # to 13; 1023: 16) and the block path's first width (1025)
     if name.startswith("width_"):
         s = int(name.split("_")[1])
         return draw(2, s + 4, (s - 1) // 2, 300, llens=[(s - 1) // 2, (s - 1) // 4])
@@ -612,6 +621,19 @@ def ctc_case(name, gen):
         return draw(3, 6, 5, 7, lens=[6, 4, 2], llens=[5, 5, 3], repeats=[(0, 1), (0, 2)])
     if name == "unalignable_wide_rows":  # S = 281
         return draw(3, 16, 140, 20, lens=[16, 12, 6], llens=[140, 100, 20])
+    # DeepSpeech2's S = 701 and vocabulary on the band path: rows that cannot
+    # be aligned beside one that can; a zero length beside full ones; lengths
+    # 45 and 38: the forward's groups of 4 steps end short, the backward's
+    # (after its first step) short at 38 and whole at 45
+    if name == "unalignable_wide_rows_701":
+        return draw(3, 30, DS2_LABELS, DS2_VOCAB, lens=[30, 24, 12], llens=[350, 100, 5],
+                    blank=DS2_VOCAB - 1)
+    if name == "wide_zero_length_beside_full_length":
+        return draw(4, 40, DS2_LABELS, DS2_VOCAB, lens=[40, 0, 40, 21], llens=[15, 350, 0, 10],
+                    blank=DS2_VOCAB - 1, repeats=[(0, 2)])
+    if name == "wide_t_not_a_multiple_of_the_chunk":
+        return draw(3, 45, DS2_LABELS, DS2_VOCAB, lens=[45, 45, 38], llens=[20, 14, 9],
+                    blank=DS2_VOCAB - 1)
     if name == "batch_of_five":
         return draw(5, 30, 6, 20, lens=[30, 22, 30, 17, 9], llens=[6, 4, 5, 3, 2])
     if name == "t_not_a_multiple_of_the_chunk":
@@ -622,7 +644,7 @@ def ctc_case(name, gen):
         return draw(4, 40, 8, 15, lens=[40, 0, 40, 21], llens=[8, 3, 0, 5])
     if name == "lengths_differ_per_row":
         return draw(4, 50, 12, 30, lens=[50, 33, 41, 26], llens=[12, 7, 10, 3])
-    # DeepSpeech2's train step: B=64, labels padded to 350 (S = 701, the block
+    # DeepSpeech2's train step: B=64, labels padded to 350 (S = 701, the band
     # path), vocabulary 29 with the blank last, T' = 626 (the 1250-frame
     # bucket) or 1001 (the 2000-frame bucket); ragged lengths of 3/4 T' to
     # T' and 80-350 labels, each row with one full length and label
@@ -639,15 +661,18 @@ def ctc_case(name, gen):
 CTC_CASES = ["flagship", "longest_labels", "long_bucket", "mixed_lengths_and_repeats",
              "empty_label", "minimal_fit", "full_length", "blank_is_last_class",
              "single_frame", "width_63", "width_65", "width_127", "width_129", "width_255",
-             "width_257", "wider_than_a_block", "widest_rows", "unalignable_rows",
-             "unalignable_wide_rows", "batch_of_five",
+             "width_257", "width_319", "width_321", "width_767", "width_769", "width_1023",
+             "width_1025", "wider_than_a_block", "widest_rows", "unalignable_rows",
+             "unalignable_wide_rows", "unalignable_wide_rows_701", "batch_of_five",
              "t_not_a_multiple_of_the_chunk", "t_shorter_than_a_chunk",
-             "zero_length_beside_full_length", "lengths_differ_per_row",
+             "zero_length_beside_full_length", "wide_zero_length_beside_full_length",
+             "wide_t_not_a_multiple_of_the_chunk", "lengths_differ_per_row",
              "deepspeech2_626", "deepspeech2_1001"]
 CTC_TIMED = CTC_CASES[:3] + CTC_CASES[-2:]
 
 
-# csrc/ctc_probe.cu's variants, in its order: each adds one part of a step
+# csrc/ctc_probe.cu's variants, in its order: each adds one part of a step;
+# the last is the band path's step, at DeepSpeech2's (B, T', S)
 CTC_LADDER = [
     ("a", "row in registers, one warp a sequence, shuffles; lse3 + a log-prob in a register"),
     ("a_fast", "(a) with __expf/__logf (not used by the port)"),
@@ -655,15 +680,26 @@ CTC_LADDER = [
     ("c", "(b) + the log-prob loaded from device memory one step ahead"),
     ("d", "(c) + the alpha row stored: the block kernels' step"),
     ("a_store", "(a) + the alpha row stored to device memory every step (not staged)"),
+    ("e", "band path: 11 warps of 64 states a sequence, each stepping as (a), edge states "
+          "passed up through a ring of tagged words, a wait every 4 steps"),
 ]
+CTC_BAND_RUNG_SHAPE = (64, 626, 701)  # DeepSpeech2's train step at the 1250-frame bucket
+
+# the first design's block path (one block of 704 threads a sequence, the row
+# in shared memory, a barrier a step; commit 4549bc6) at DeepSpeech2's shapes
+# of phase 5, ms per launch (forward, backward), measured by this script on
+# NVIDIA H100 80GB HBM3, 700 W when it was the path S = 701 took: logged
+# beside this run's times of the same kernels (``ctc_dp.block_plan``)
+BLOCK_PATH_MS = {"deepspeech2_626": (0.3878, 0.4508), "deepspeech2_1001": (0.6187, 0.7186)}
 
 
 def ctc_chain_ladder(build, b=TRAIN_BATCH, t=256, s=41, launches=5):
     """Latency of one dependent step of the CTC recursion, variant by variant
-    (``csrc/ctc_probe.cu``), at the flagship's B and S: per launch the median
-    over blocks of the loop's %globaltimer ns and clock64 cycles over ``t``;
-    the median of ``launches`` launches after one warm-up; and, to check the
-    stamps, a launch's device time over ``t`` (which adds the launch)."""
+    (``csrc/ctc_probe.cu``), at the flagship's B and S (the band rung at
+    ``CTC_BAND_RUNG_SHAPE``): per launch the median over blocks of the loop's
+    %globaltimer ns and clock64 cycles over ``t``; the median of
+    ``launches`` launches after one warm-up; and, to check the stamps, a
+    launch's device time over ``t`` (which adds the launch)."""
     import ctypes
 
     lib = build.load("ctc_probe")
@@ -675,11 +711,13 @@ def ctc_chain_ladder(build, b=TRAIN_BATCH, t=256, s=41, launches=5):
     if lib.ctc_probe_variants() != len(CTC_LADDER):
         raise AssertionError("ctc_probe.cu and CTC_LADDER disagree on the variants")
     gen = torch.Generator(device="cuda").manual_seed(4)
-    logp = torch.log_softmax(torch.randn(b, t, s, device="cuda", generator=gen), -1)
-    out, alphas = torch.empty(b, s, device="cuda"), torch.empty(b, t, s, device="cuda")
-    ns, cycles = (torch.empty(b, dtype=torch.int64, device="cuda") for _ in range(2))
     rows = {}
     for variant, (name, what) in enumerate(CTC_LADDER):
+        if name == "e":
+            b, t, s = CTC_BAND_RUNG_SHAPE
+        logp = torch.log_softmax(torch.randn(b, t, s, device="cuda", generator=gen), -1)
+        out, alphas = torch.empty(b, s, device="cuda"), torch.empty(b, t, s, device="cuda")
+        ns, cycles = (torch.empty(b, dtype=torch.int64, device="cuda") for _ in range(2))
         per_launch = []
         for _ in range(launches + 1):
             rc = lib.ctc_probe_launch(variant, logp.data_ptr(), out.data_ptr(), alphas.data_ptr(),
@@ -700,12 +738,14 @@ def ctc_chain_ladder(build, b=TRAIN_BATCH, t=256, s=41, launches=5):
                                  torch.cuda.current_stream().cuda_stream)
 
         # the stamps against the whole launch's device time over t
-        rows[name] = {"what": what, "us_per_step": statistics.median(p[0] for p in per_launch),
+        rows[name] = {"what": what, "shape": [b, t, s],
+                      "us_per_step": statistics.median(p[0] for p in per_launch),
                       "cycles_per_step": statistics.median(p[1] for p in per_launch),
                       "launch_us_per_step": 1e3 * cuda_ms(launch, iters=5) / t}
-    for r in rows.values():
-        r["share_of_d"] = r["us_per_step"] / rows["d"]["us_per_step"]
-    return {"shape": [b, t, s], "variants": rows}
+    for r in rows.values():  # against the block kernels' step at the same shape
+        same = r["shape"] == rows["d"]["shape"]
+        r["share_of_d"] = r["us_per_step"] / rows["d"]["us_per_step"] if same else None
+    return {"shape": rows["a"]["shape"], "variants": rows}
 
 
 def check_ctc(ctc_dp, name, gen, floor_us=None):
@@ -772,6 +812,20 @@ def check_ctc(ctc_dp, name, gen, floor_us=None):
     fwd_ms = cuda_ms(lambda: ctc_dp.ctc_dp_fwd(logp_ext, lens32, allowed8, llens32))
     bwd_ms = cuda_ms(lambda: ctc_dp.ctc_dp_bwd(logp_ext, alphas, lens32, allowed8, llens32,
                                                loss_k, g))
+    if name in BLOCK_PATH_MS:  # S = 701: the first design's block kernels on these inputs
+        block = ctc_dp.block_plan(s)
+        loss_b, alphas_b = ctc_dp.launch_fwd(block, logp_ext, lens32, allowed8, llens32)
+        grad_b = ctc_dp.launch_bwd(block, logp_ext, alphas_b, lens32, allowed8, llens32, loss_b, g)
+        result["block_path_max_abs_err"] = {"loss": (loss_b - loss_p).abs().max().item(),
+                                            "grad_logp_ext": (grad_b - grad_p).abs().max().item()}
+        if not (result["block_path_max_abs_err"]["loss"] <= tol_value
+                and result["block_path_max_abs_err"]["grad_logp_ext"] <= tol_grad):
+            raise AssertionError(f"ctc_dp {name}: block path and plain version disagree: {result}")
+        result["block_path_fwd_ms"] = cuda_ms(
+            lambda: ctc_dp.launch_fwd(block, logp_ext, lens32, allowed8, llens32))
+        result["block_path_bwd_ms"] = cuda_ms(
+            lambda: ctc_dp.launch_bwd(block, logp_ext, alphas_b, lens32, allowed8, llens32,
+                                      loss_b, g))
 
     def plain(mark):
         loss = ctc_dp.ctc_dp_reference(ref_in, lens, allowed, llens)
@@ -3871,8 +3925,9 @@ def main():
         "and launches): variant | us per step | SM cycles per step | share of (d) | launch time "
         "over T, us | what")
     for name, r in ladder["variants"].items():
-        log(f"  ({name}) | {r['us_per_step']:.4f} | {r['cycles_per_step']:.1f} | "
-            f"{r['share_of_d']:.3f} | {r['launch_us_per_step']:.4f} | {r['what']}")
+        share = "-" if r["share_of_d"] is None else f"{r['share_of_d']:.3f}"
+        log(f"  ({name}) {r['shape']} | {r['us_per_step']:.4f} | {r['cycles_per_step']:.1f} | "
+            f"{share} | {r['launch_us_per_step']:.4f} | {r['what']}")
     gen = torch.Generator(device="cuda").manual_seed(2)
     log("ctc_dp vs plain: case [B T S V] path k threads chunk | max abs err: loss, loss at "
         "logits, grad logp_ext, grad logits | tol value, grad")
@@ -3894,14 +3949,25 @@ def main():
             f"{r['chain_steps']} "
             f"{r['fwd_us_per_step']:.4f} {r['bwd_us_per_step']:.4f}; F.ctc_loss vs kernel "
             f"max abs err {r['library_max_abs_err']:.3e}")
-    block_us = ladder["variants"]["d"]["us_per_step"]
+    band_us = ladder["variants"]["e"]["us_per_step"]
     for name in CTC_TIMED:
         r = ctc_results[name]
-        if r["plan"]["path"] == "block":  # DeepSpeech2's S = 701
-            r["block_floor_ms"] = r["chain_steps"] * block_us / 1e3
-            log(f"  {name}: block path, {r['plan']['threads']} threads a sequence; steps at "
-                f"ladder rung (d) {block_us:.4f} us: {r['block_floor_ms']:.4f} ms; kernel / "
-                f"F.ctc_loss fwd {r['fwd_ms'] / r['library_fwd_ms']:.3f}, bwd "
+        if name in BLOCK_PATH_MS:  # DeepSpeech2's S = 701
+            if r["plan"]["path"] != "band":
+                raise AssertionError(f"ctc_dp {name}: S = 701 took the {r['plan']['path']} path")
+            r["band_floor_ms"] = r["chain_steps"] * band_us / 1e3
+            pr8_fwd, pr8_bwd = BLOCK_PATH_MS[name]
+            log(f"  {name}: band path, {r['plan']['threads'] // 32} warps a sequence; "
+                f"chain floor at rung (a) "
+                f"{r['chain_floor_ms']:.4f} ms, at rung (e) {band_us:.4f} us "
+                f"{r['band_floor_ms']:.4f} ms; kernel / rung (e) floor fwd "
+                f"{r['fwd_ms'] / r['band_floor_ms']:.3f}, bwd {r['bwd_ms'] / r['band_floor_ms']:.3f}; "
+                f"first design's block path fwd {r['block_path_fwd_ms']:.4f}, bwd "
+                f"{r['block_path_bwd_ms']:.4f} (this run; PR 8 read {pr8_fwd:.4f}, "
+                f"{pr8_bwd:.4f}: BLOCK_PATH_MS), kernel / block path fwd "
+                f"{r['fwd_ms'] / r['block_path_fwd_ms']:.3f}, bwd "
+                f"{r['bwd_ms'] / r['block_path_bwd_ms']:.3f}; kernel / F.ctc_loss fwd "
+                f"{r['fwd_ms'] / r['library_fwd_ms']:.3f}, bwd "
                 f"{r['bwd_ms'] / r['library_bwd_ms']:.3f}")
 
     phase_seconds(6)
@@ -4002,7 +4068,7 @@ def main():
     stream_launches = sum(r["launches"] for r in stream["runs"].values())
 
     phase_seconds(11)
-    # 11. the DeepSpeech2 recipe at full width: the CTC pair on its block path
+    # 11. the DeepSpeech2 recipe at full width: the CTC pair on its band path
     ds2_launches, ds2 = deepspeech2_phase(ctc_dp)
     ds2_ctc = {name: ctc_results[name] for name in CTC_TIMED if name.startswith("deepspeech2")}
 
@@ -4061,6 +4127,15 @@ def main():
     head = next(r for r in results if (r["m"], r["k"], r["n"], r["dtype"])
                 == (enc_m, D_MODEL, FFN, "bfloat16"))
     ctc_shapes = [ctc_results[name] for name in CTC_CASES]
+
+    def wide_rows(kind):  # the band path at DeepSpeech2's shapes, beside the block path
+        return {name: {
+            "path": r["plan"]["path"], "warps": r["plan"]["threads"] // 32, "shape": r["shape"],
+            "ms": r[f"{kind}_ms"], "block_path_ms": r[f"block_path_{kind}_ms"],
+            "bound_ms": r[f"{kind}_bound_ms"], "bound_by": "bytes",
+            "chain_floor_ms_rung_a": r["chain_floor_ms"], "chain_floor_ms_rung_e": r["band_floor_ms"],
+            "plain_ms": r[f"plain_{kind}_ms"], "library_ms": r[f"library_{kind}_ms"]}
+            for name, r in ds2_ctc.items()}
     log('kernels: ["int8_matmul", "ctc_dp_fwd", "ctc_dp_bwd", "fused_logmel"]')
     log(json.dumps({"kernels": [{
         "name": "int8_matmul", "route": "cuda",
@@ -4091,6 +4166,7 @@ def main():
         "us_per_step": flagship["fwd_us_per_step"], "floor_us_per_step": floor_us,
         "plan": flagship["plan"], "recipe_launches": recipe_launches[0], "recipe": recipe,
         "deepspeech2_launches": ds2_launches[0], "deepspeech2": ds2, "deepspeech2_ctc": ds2_ctc,
+        "wide_rows": wide_rows("fwd"),
         "card": card, "chain_ladder": ladder, "shapes": ctc_shapes,
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_fwd"],
         "separation_launches": sep_launches["ctc_dp_fwd"],
@@ -4109,6 +4185,7 @@ def main():
         "chain_floor_ms": flagship["chain_floor_ms"], "chain_steps": flagship["chain_steps"],
         "us_per_step": flagship["bwd_us_per_step"], "floor_us_per_step": floor_us,
         "recipe_launches": recipe_launches[1], "deepspeech2_launches": ds2_launches[1],
+        "wide_rows": wide_rows("bwd"),
         "ecapa_tdnn_launches": ecapa_launches["ctc_dp_bwd"],
         "separation_launches": sep_launches["ctc_dp_bwd"],
         "fastspeech2_launches": tts_launches["ctc_dp_bwd"],

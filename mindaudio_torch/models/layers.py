@@ -57,6 +57,7 @@ __all__ = [
     "sinusoid_table",
     "PositionalEncoding",
     "RelPositionalEncoding",
+    "NoPositionalEncoding",
     "ConvolutionModule",
     "Conv2dSubsampling4",
 ]
@@ -499,6 +500,19 @@ class RelPositionalEncoding(PositionalEncoding):
         return self.dropout(x), pos
 
 
+class NoPositionalEncoding(nn.Module):
+    """No position information: ``x`` as it is (after dropout), and a zero
+    table ``(1, T, d)``."""
+
+    def __init__(self, d_model, dropout_rate=0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout = FastDropout(dropout_rate)
+
+    def forward(self, x, offset=0):
+        return self.dropout(x), x.new_zeros(1, x.shape[1], self.d_model)
+
+
 class ConvolutionModule(nn.Module):
     """Conformer convolution module: pointwise(2C) → GLU → depthwise(k) →
     norm → swish → pointwise(C). The norm is a LayerNorm, or with
@@ -615,6 +629,8 @@ class Conv2dSubsampling4(nn.Module):
             self.pos_enc = RelPositionalEncoding(d_model, dropout_rate)
         elif pos_enc == "abs_pos":
             self.pos_enc = PositionalEncoding(d_model, dropout_rate)
+        elif pos_enc == "no_pos":
+            self.pos_enc = NoPositionalEncoding(d_model, dropout_rate)
         else:
             raise ValueError(f"unknown pos_enc {pos_enc!r}")
 

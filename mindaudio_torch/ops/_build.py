@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and no PyTorch
 headers, so ``nvcc`` builds it in seconds into ``csrc/build/lib<name>-<hash>.so``
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source or header rebuilds).
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for all
 of them. Nothing here runs at import: the CPU tests import every module.
 ``nvcc`` is the one of the CUDA toolkit PyTorch finds (``$CUDA_HOME``,
@@ -35,16 +36,20 @@ def _nvcc():
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def hashed_lib_path(source, flags, build_dir, name):
-    """``build_dir/lib<name>-<hash>.so``, the hash over the source's bytes and
-    the flags, so that an edited source or a changed flag builds anew."""
+def hashed_lib_path(source, flags, build_dir, name, headers=()):
+    """``build_dir/lib<name>-<hash>.so``, the hash over the bytes of the source
+    and of ``headers`` and over the flags, so that an edited source or header
+    or a changed flag builds anew."""
     digest = hashlib.sha256(Path(source).read_bytes())
+    for header in headers:
+        digest.update(Path(header).read_bytes())
     digest.update(" ".join(flags).encode())
     return Path(build_dir) / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _lib_path(name):
-    return hashed_lib_path(CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR, name)
+    return hashed_lib_path(CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR, name,
+                           sorted(CSRC.glob("*.cuh")))
 
 
 def compile_parallel(compiler, flags, jobs):

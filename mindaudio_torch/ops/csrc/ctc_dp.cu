@@ -59,15 +59,64 @@
 //   the control flow as uniform and puts no divergence checks before the
 //   shuffles (four sequences a block measured slower on the H100).
 //
-// Wider rows (S > 32 * MAX_K) take the block kernels, the port's first design
-// kept as it was but for the zero gradient past the length. The launch plan (ops/ctc_dp.py
-// `kernel_plan`: the path, K, the chunk, the threads and the shared memory of
-// a block) is chosen in Python and passed to the launchers.
+// Wider rows, 32 * MAX_K < S <= 32 * BAND_K * MAX_WARPS (257 to 1023,
+// DeepSpeech2's S = 701 among them), take the band kernels: several warps a
+// sequence.
+//
+// - The row is cut into W = ceil(S / (32 * BAND_K)) bands of 32 * BAND_K
+//   states; warp w holds band w in registers in the one-warp layout (K =
+//   BAND_K states a lane), so that within a band a step is the one-warp
+//   step. More warps put more of the SM's four schedulers on one sequence:
+//   a step of a 701-state row is thousands of instructions, which one warp
+//   would issue one after the other. What bounds the band path is that
+//   issue on one SM (three warps on three of its schedulers at S = 701) and
+//   the exchange's latency, not bytes.
+// - The forward's dependence runs only up in s, the backward's only down.
+//   So a warp needs from its neighbour only the two edge states of the step
+//   before (forward: the two top states of the band below; backward: the two
+//   bottom w = logp + beta of the band above). The neighbour stores each as
+//   one 64-bit word {value, step} into a ring of EDGE_RING steps in shared
+//   memory. No barrier is on the chain: the warps run as a wavefront, each
+//   GROUP steps behind the band it reads, and wait for it once a group
+//   (acquire loads of the group's last pair, which its writer stores with
+//   release), not once a step. A step stores and loads its pair without a
+//   branch: on the H100 a wait, or a store taken by two lanes, in every step
+//   cost more than the exchange itself. Before a group overwrites a step
+//   that its reader may not have read, the writer waits until the reader has
+//   published (a count in shared memory, every half ring) that it has.
+//   ctc_band.cuh holds the band layout's constants, its shared memory's
+//   size and this exchange, which ctc_probe.cu's rung (e) times alone.
+// - Nothing is staged in shared memory: each step stores its alpha
+//   (gradient) row to device memory from registers, and the log-probs
+//   (backward: and alphas) of a group of steps are loaded into registers
+//   while the group before runs, so that every memory access is spread over
+//   the steps. On the H100, staging a chunk of rows through shared memory
+//   (the one-warp path's design) made the band kernels slower than the block
+//   kernels at this width: each warp's burst of copies at a chunk's end held
+//   up the bands that read its edges. The chain ends at `len`; frames past
+//   it are written off the chain. Shared memory holds only the edge rings
+//   (and, at the forward's end, the last row, for the loss).
+// - BAND_K = 2: on the H100 a step of three states a lane took more than
+//   twice as long as one of two (the compiler's schedule of three lse3
+//   chains); one state a lane needs twice the warps and exchanges.
+//   DeepSpeech2's S = 701 is 11 warps of 64 states. MAX_WARPS = 16 (512
+//   threads) leaves each thread up to 128 registers: at 768 threads (80
+//   registers) the backward ran slower on the H100, its loads of the next
+//   group sunk to the group's end.
+//
+// Rows wider still (S >= 1025) take the block kernels, the port's first design
+// kept as it was but for the zero gradient past the length: the choice is by
+// shape alone, in ops/ctc_dp.py `kernel_plan` (the path and the threads of a
+// block; on the one-warp and block paths also K, the chunk and the shared
+// memory), which passes it to the launchers. The band launcher lays out its
+// block itself (BAND_K, GROUP, `band_smem_bytes`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "ctc_band.cuh"
 
 namespace {
 
@@ -100,6 +149,23 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// a load of read-only device memory kept where it stands among the edge
+// exchange's instructions (left to the compiler, a group's loads for the
+// group after sink to the group's end, and the next group waits on them)
+__device__ __forceinline__ float load_early(const float* at) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(at));
+  return v;
+}
+
+// a store to device memory that lanes with `live` false skip, without a
+// branch (left to the compiler, an expression computed for the store moves
+// into a divergent branch of its own)
+__device__ __forceinline__ void store_if(float* at, float v, bool live) {
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %2, 0;\n\t@p st.global.f32 [%0], %1;\n\t}"
+               ::"l"(at), "f"(v), "r"(static_cast<int>(live)));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -350,6 +416,244 @@ ctc_bwd_warp_kernel(const float* __restrict__ logp, const float* __restrict__ al
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------- bands
+
+// Forward, warp w on states [w * BAND, w * BAND + width). Step t stores its
+// alpha row to device memory and its two top states (lanes 31 and 30,
+// register K-1) for the band above, then loads the band below's pair of
+// step t for step t+1: lanes 0 and 1 of register 0 take it as their s-1 and
+// s-2. The log-probs of a group of steps are loaded into registers while
+// the group before runs.
+template <int K>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+ctc_fwd_band_kernel(const float* __restrict__ logp, const int* __restrict__ lens,
+                    const int* __restrict__ llens, const uint8_t* __restrict__ allowed,
+                    float* __restrict__ alphas, float* __restrict__ loss, int T, int S) {
+  static_assert(32 * K == BAND, "a band is K registers of 32 lanes");
+  extern __shared__ __align__(16) float row_smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int b = blockIdx.x, base = w * BAND, width = min(BAND, S - base);
+  const int len = clampi(lens[b], 0, T);
+  const bool below = w > 0;
+  BandEdges edge = band_edges(warps, lane, w, w - 1, w + 1 < warps ? w + 1 : -1, 31, 30);
+  const float* lp_seq = logp + (size_t)b * T * S + base;
+  float* al_seq = alphas + (size_t)b * T * S + base;
+  const int from1 = (lane + 31) & 31, from2 = (lane + 30) & 31;
+
+  float a[K], allow[K];
+  int at[K];  // the state's column in the band; states past S use the last one
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = base + lane + 32 * j;
+    a[j] = s == 0 ? 0.f : LOG_EPS;
+    allow[j] = (s < S && allowed[(size_t)b * S + s]) ? 0.f : LOG_EPS;
+    at[j] = min(lane + 32 * j, width - 1);
+  }
+  // lanes 0 (s-1 and s-2) and 1 (s-2) of register 0: the band below's top
+  // states of the step before, at first its initial row (-1e5; none below band 0)
+  float e1 = LOG_EPS, e2 = LOG_EPS;
+  float lps[GROUP][K];  // the log-probs of the group's frames
+  auto load = [&](int slot, int t) {  // frame t (past the last, the last: never used)
+    const float* row = lp_seq + (size_t)min(t, T - 1) * S;
+#pragma unroll
+    for (int j = 0; j < K; ++j) lps[slot][j] = row[at[j]];
+  };
+#pragma unroll
+  for (int s = 0; s < GROUP; ++s) load(s, s);
+  __syncthreads();  // the edge rings are set up
+
+  // one step, without a branch; RELEASE on a group's last
+  auto step = [&](int t, int slot, bool release) {
+    float x1[K], x2[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      x1[j] = __shfl_sync(FULL, a[j], from1);
+      x2[j] = __shfl_sync(FULL, a[j], from2);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {  // lanes 0 and 1 take register j-1 of lanes 31 and 30
+      const int below_j = j > 0 ? j - 1 : 0;
+      const float p1 = lane >= 1 ? x1[j] : (j > 0 ? x1[below_j] : e1);
+      const float p2 = lane >= 2 ? x2[j] : (j > 0 ? x2[below_j] : e2);
+      a[j] = lps[slot][j] + lse3(a[j], p1, p2 + allow[j]);
+    }
+    load(slot, t + GROUP);  // the same slot of the next group
+    // lane 31: the top state, lane 30: top-1
+    if (release)
+      edge.put_at<true>(t, a[K - 1]);
+    else
+      edge.put_at<false>(t, a[K - 1]);
+    float top, top1;
+    edge.get_at(t, top, top1);
+    e1 = below ? top : LOG_EPS;
+    e2 = below ? (lane == 1 ? top : top1) : LOG_EPS;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (lane + 32 * j < width) al_seq[(size_t)t * S + lane + 32 * j] = a[j];
+  };
+  int g0 = 0;
+  for (; g0 + GROUP <= len; g0 += GROUP) {
+    edge.open_group(g0, g0 + GROUP);
+#pragma unroll
+    for (int s = 0; s < GROUP; ++s) step(g0 + s, s, s == GROUP - 1);
+    edge.close_group(g0, g0 + GROUP, lane);
+  }
+  if (g0 < len) {  // the last steps, fewer than a group
+    edge.open_group(g0, len);
+#pragma unroll
+    for (int s = 0; s < GROUP; ++s)
+      if (g0 + s < len) step(g0 + s, s, g0 + s == len - 1);
+  }
+
+  for (int t = len; t < T; ++t) {  // frames past the length carry the row
+    float* out = al_seq + (size_t)t * S;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (lane + 32 * j < width) out[lane + 32 * j] = a[j];
+  }
+
+  // the loss from states 2l and 2l-1 of the row at the last valid frame,
+  // which may lie in two bands: the row through shared memory, over the
+  // edge rings
+  __syncthreads();  // every warp is done with the edge rings
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (lane + 32 * j < width) row_smem[base + lane + 32 * j] = a[j];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int l2 = 2 * clampi(llens[b], 0, (S - 1) / 2);
+    const float a2 = row_smem[l2];
+    float ll = a2;
+    if (l2 > 0) {
+      const float a1 = row_smem[l2 - 1];
+      ll = fmaxf(a2, a1) + log1pf(expf(-fabsf(a2 - a1)));
+    }
+    loss[b] = -ll;
+  }
+}
+
+// Backward, warp w on the same band, walking the frames down from len-1
+// (step i on frame len-1-i). Step i stores the gradient row of the frame
+// after (its exp taken beside this step's lse3) and its two bottom wv =
+// logp + beta (lanes 0 and 1, register 0) for the band below, then loads
+// the band above's pair of step i for step i+1: lanes 31 (s+1 and s+2) and
+// 30 (s+2) of register K-1 take it. Step 0 (beta = term) is a group of its
+// own. The step is the one-warp backward's.
+template <int K>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+ctc_bwd_band_kernel(const float* __restrict__ logp, const float* __restrict__ alphas,
+                    const int* __restrict__ lens, const int* __restrict__ llens,
+                    const uint8_t* __restrict__ allowed, const float* __restrict__ loss,
+                    const float* __restrict__ g, float* __restrict__ grad, int T, int S) {
+  static_assert(32 * K == BAND, "a band is K registers of 32 lanes");
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int b = blockIdx.x, base = w * BAND, width = min(BAND, S - base);
+  const int len = clampi(lens[b], 0, T);
+  const int l2 = 2 * clampi(llens[b], 0, (S - 1) / 2);
+  const float loss_b = loss[b], g_b = g[b];
+  const bool above = w + 1 < warps;
+  BandEdges edge = band_edges(warps, lane, w, above ? w + 1 : -1, w > 0 ? w - 1 : -1, 0, 1);
+  const size_t seq = (size_t)b * T * S + base;
+  const float* lp_seq = logp + seq;
+  const float* al_seq = alphas + seq;
+  float* gr_seq = grad + seq;
+  const int from1 = (lane + 1) & 31, from2 = (lane + 2) & 31;
+
+  float wv[K], allow2[K], term[K];  // wv = logp + beta of the frame after this one
+  int at[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = base + lane + 32 * j;
+    wv[j] = NEG_INF;
+    allow2[j] = (s + 2 < S && allowed[(size_t)b * S + s + 2]) ? 0.f : LOG_EPS;
+    term[j] = (s == l2 || (s == l2 - 1 && l2 > 0)) ? 0.f : NEG_INF;
+    at[j] = min(lane + 32 * j, width - 1);
+  }
+  // lanes 31 (s+1 and s+2) and 30 (s+2) of register K-1: the band above's
+  // bottom wv of the step before (minus infinity above the last band)
+  float e1 = NEG_INF, e2 = NEG_INF;
+  float lps[GROUP][K], als[GROUP][K];  // the log-probs and alphas of the group's frames
+  auto load = [&](int slot, int i) {  // step i's frame (past frame 0, frame 0: never used)
+    const size_t row = (size_t)max(len - 1 - i, 0) * S;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      lps[slot][j] = load_early(lp_seq + row + at[j]);
+      als[slot][j] = load_early(al_seq + row + at[j]);
+    }
+  };
+  float arg[K];  // alpha + beta + loss of the frame after, not yet exponentiated
+  // with beta at step i; then the gradient-to-be, and the edges
+  auto finish = [&](int i, int slot, const float* beta, bool release) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      // states past S keep wv = -inf: they are the s+1, s+2 of the last states
+      wv[j] = lane + 32 * j < width ? lps[slot][j] + beta[j] : NEG_INF;
+      arg[j] = als[slot][j] + beta[j] + loss_b;
+    }
+    // lane 0: the bottom state, lane 1: bottom+1
+    if (release)
+      edge.put_at<true>(i, wv[0]);
+    else
+      edge.put_at<false>(i, wv[0]);
+    float bottom, bottom1;
+    edge.get_at(i, bottom, bottom1);
+    e1 = above ? bottom : NEG_INF;
+    e2 = above ? (lane == 30 ? bottom : bottom1) : NEG_INF;
+  };
+  auto store_grad = [&](int t) {  // frame t's gradient, from the arg of its step
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      store_if(gr_seq + (size_t)t * S + lane + 32 * j, -expf(arg[j]) * g_b, lane + 32 * j < width);
+  };
+  if (len > 0) load(0, 0);  // step 0's frame
+  __syncthreads();  // the edge rings are set up
+
+  for (int t = len; t < T; ++t)  // frames past the length: the loss does not depend on them
+    for (int e = lane; e < width; e += 32) gr_seq[(size_t)t * S + e] = 0.f;
+
+  // one step, without a branch; RELEASE on a group's last
+  auto step = [&](int i, int slot, bool release) {
+    float x1[K], x2[K], beta[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      x1[j] = __shfl_sync(FULL, wv[j], from1);
+      x2[j] = __shfl_sync(FULL, wv[j], from2);
+    }
+    store_grad(len - i);  // the frame after's gradient, off the chain
+#pragma unroll
+    for (int j = 0; j < K; ++j) {  // lanes 31 and 30 take register j+1 of lanes 0 and 1
+      const int above_j = j + 1 < K ? j + 1 : j;
+      const float q1 = lane <= 30 ? x1[j] : (j + 1 < K ? x1[above_j] : e1);
+      const float q2 = lane <= 29 ? x2[j] : (j + 1 < K ? x2[above_j] : e2);
+      beta[j] = lse3_excl(wv[j], q1, q2 + allow2[j]);
+    }
+    finish(i, slot, beta, release);
+    load(slot, i + GROUP);  // the same slot of the next group
+  };
+  if (len > 0) {
+    // step 0, the last valid frame: beta = term, a group of its own
+    edge.open_group(0, 1);
+    finish(0, 0, term, true);
+    edge.close_group(0, 1, lane);
+#pragma unroll
+    for (int s = 0; s < GROUP; ++s) load(s, 1 + s);  // the first group's frames
+    int g0 = 1;
+    for (; g0 + GROUP <= len; g0 += GROUP) {
+      edge.open_group(g0, g0 + GROUP);
+#pragma unroll
+      for (int s = 0; s < GROUP; ++s) step(g0 + s, s, s == GROUP - 1);
+      edge.close_group(g0, g0 + GROUP, lane);
+    }
+    if (g0 < len) {  // the last steps, fewer than a group
+      edge.open_group(g0, len);
+#pragma unroll
+      for (int s = 0; s < GROUP; ++s)
+        if (g0 + s < len) step(g0 + s, s, g0 + s == len - 1);
+    }
+    store_grad(0);
+  }
+}
+
 // ---------------------------------------------------------------- one block
 
 // Wide rows, the port's first design: one thread a state (a strided loop beyond
@@ -478,11 +782,22 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// k = ceil(S/32) <= MAX_K and one warp for the one-warp path; k = 0 and
-// whole warps up to a block for the block path
-bool plan_ok(int S, int k, int threads, int chunk) {
-  if (k == 0) return threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0;
-  return threads == 32 && chunk >= 1 && k <= MAX_K && k == (S + 31) / 32;
+enum Path { WARP = 0, BAND_PATH = 1, BLOCK = 2 };
+
+// the one-warp path: k = ceil(S/32) <= MAX_K, one warp; the band path:
+// ceil(S/BAND) warps (5 to MAX_WARPS), its k, chunk and shared memory not
+// read; the block path: whole warps up to a block
+bool plan_ok(int path, int S, int k, int threads, int chunk) {
+  switch (path) {
+    case WARP:
+      return threads == 32 && chunk >= 1 && k <= MAX_K && k == (S + 31) / 32;
+    case BAND_PATH:
+      return S > 32 * MAX_K && threads == 32 * ((S + BAND - 1) / BAND) &&
+             threads <= 32 * MAX_WARPS;
+    case BLOCK:
+      return threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0;
+  }
+  return false;
 }
 
 // f(integral_constant k) for k in 1..MAX_K
@@ -504,15 +819,16 @@ cudaError_t with_k(int k, F f) {
 }  // namespace
 
 // Both launchers run on `stream`, never synchronise, and return
-// cudaGetLastError() (0 on success). The plan (k, threads a block, chunk,
-// dynamic shared memory) comes from ops/ctc_dp.py `kernel_plan`, which owns
-// the shared-memory layout's size; k = 0 takes the block path.
+// cudaGetLastError() (0 on success). The plan (path: 0 one warp, 1 bands,
+// 2 one block; k, threads a block, chunk, dynamic shared memory) comes from
+// ops/ctc_dp.py `kernel_plan`, which sizes the one-warp and block paths'
+// shared memory; the band path reads only the threads and sizes its own.
 extern "C" int ctc_dp_fwd_launch(const void* logp, const void* lens, const void* llens,
                                  const void* allowed, void* alphas, void* loss, int B, int T,
-                                 int S, int k, int threads, int chunk, long long smem,
+                                 int S, int path, int k, int threads, int chunk, long long smem,
                                  void* stream) {
   if (B <= 0) return 0;
-  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(S, k, threads, chunk))
+  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(path, S, k, threads, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(logp);
@@ -522,10 +838,15 @@ extern "C" int ctc_dp_fwd_launch(const void* logp, const void* lens, const void*
   float* out = static_cast<float*>(alphas);
   float* ls = static_cast<float*>(loss);
   cudaError_t err = cudaSuccess;
-  if (k == 0) {
+  if (path == BLOCK) {
     err = allow_smem(ctc_fwd_block_kernel, smem);
     if (err == cudaSuccess)
       ctc_fwd_block_kernel<<<B, threads, smem, st>>>(lp, ln, ll, al, out, ls, T, S);
+  } else if (path == BAND_PATH) {
+    const size_t bytes = band_smem_bytes(threads / 32);
+    err = allow_smem(ctc_fwd_band_kernel<BAND_K>, bytes);
+    if (err == cudaSuccess)
+      ctc_fwd_band_kernel<BAND_K><<<B, threads, bytes, st>>>(lp, ln, ll, al, out, ls, T, S);
   } else {
     err = with_k(k, [&](auto kk) {
       constexpr int K = decltype(kk)::value;
@@ -541,10 +862,10 @@ extern "C" int ctc_dp_fwd_launch(const void* logp, const void* lens, const void*
 
 extern "C" int ctc_dp_bwd_launch(const void* logp, const void* alphas, const void* lens,
                                  const void* llens, const void* allowed, const void* loss,
-                                 const void* g, void* grad, int B, int T, int S, int k,
+                                 const void* g, void* grad, int B, int T, int S, int path, int k,
                                  int threads, int chunk, long long smem, void* stream) {
   if (B <= 0) return 0;
-  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(S, k, threads, chunk))
+  if (T <= 0 || S <= 0 || smem < 0 || !plan_ok(path, S, k, threads, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(logp);
@@ -556,10 +877,16 @@ extern "C" int ctc_dp_bwd_launch(const void* logp, const void* alphas, const voi
   const float* gg = static_cast<const float*>(g);
   float* out = static_cast<float*>(grad);
   cudaError_t err = cudaSuccess;
-  if (k == 0) {
+  if (path == BLOCK) {
     err = allow_smem(ctc_bwd_block_kernel, smem);
     if (err == cudaSuccess)
       ctc_bwd_block_kernel<<<B, threads, smem, st>>>(lp, alph, ln, ll, al, ls, gg, out, T, S);
+  } else if (path == BAND_PATH) {
+    const size_t bytes = band_smem_bytes(threads / 32);
+    err = allow_smem(ctc_bwd_band_kernel<BAND_K>, bytes);
+    if (err == cudaSuccess)
+      ctc_bwd_band_kernel<BAND_K><<<B, threads, bytes, st>>>(lp, alph, ln, ll, al, ls, gg, out, T,
+                                                             S);
   } else {
     err = with_k(k, [&](auto kk) {
       constexpr int K = decltype(kk)::value;

@@ -22,11 +22,19 @@
 //           strided loop
 //   5  (a+) (a) with the alpha row stored to device memory every step, which
 //           ctc_dp.cu avoids by staging a chunk of rows in shared memory
+//   6  (e)  ctc_dp.cu's band step for wide rows: ceil(S/64) warps a sequence,
+//           each a band of 64 states in registers (K = 2 a lane) stepping as
+//           (a), the two edge states of each step passed up to the next band
+//           by the band kernels' own exchange (ctc_band.cuh: a ring of tagged
+//           64-bit words in shared memory, a wait once a group of 4 steps).
+//           Up to S = 1024; variants 0-5 take S <= 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "ctc_band.cuh"
 
 namespace {
 
@@ -99,6 +107,81 @@ probe_registers(const float* __restrict__ logp, float* __restrict__ out,
   }
 }
 
+// variant (e): ctc_dp.cu's forward band step, less its row loads and
+// stores: blockDim.x = 32 * ceil(S / BAND), the exchange of ctc_band.cuh as
+// the band kernel drives it (a group of GROUP steps between two waits, the
+// last group short). Thread 0 stamps after a __syncthreads() on either side
+// of the loop, so the time covers every band.
+template <int K>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+probe_bands(const float* __restrict__ logp, float* __restrict__ out,
+            unsigned long long* __restrict__ ns, unsigned long long* __restrict__ cycles, int T,
+            int S) {
+  static_assert(32 * K == BAND, "a band is K registers of 32 lanes");
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int b = blockIdx.x, base = w * BAND, width = min(BAND, S - base);
+  const bool below = w > 0;
+  BandEdges edge = band_edges(warps, lane, w, w - 1, w + 1 < warps ? w + 1 : -1, 31, 30);
+  const int from1 = (lane + 31) & 31, from2 = (lane + 30) & 31;
+  float a[K], lp[K], allow[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int s = base + lane + 32 * j;
+    a[j] = s == 0 ? 0.f : LOG_EPS;
+    lp[j] = logp[(size_t)b * T * S + base + min(lane + 32 * j, width - 1)];
+    allow[j] = allow_of(s);
+  }
+  float e1 = LOG_EPS, e2 = LOG_EPS;
+  __syncthreads();  // the edge rings are set up
+  const uint64_t t0 = globaltimer();
+  const long long c0 = clock64();
+  auto step = [&](int t, bool release) {
+    float r1[K], r2[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      r1[j] = __shfl_sync(FULL, a[j], from1);
+      r2[j] = __shfl_sync(FULL, a[j], from2);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float p1 = lane >= 1 ? r1[j] : (j > 0 ? r1[j - 1] : e1);
+      const float p2 = lane >= 2 ? r2[j] : (j > 0 ? r2[j - 1] : e2);
+      a[j] = lp[j] + lse3<false>(a[j], p1, p2 + allow[j]);
+    }
+    if (release)
+      edge.put_at<true>(t, a[K - 1]);
+    else
+      edge.put_at<false>(t, a[K - 1]);
+    float top, top1;
+    edge.get_at(t, top, top1);
+    e1 = below ? top : LOG_EPS;
+    e2 = below ? (lane == 1 ? top : top1) : LOG_EPS;
+  };
+  int g0 = 0;
+  for (; g0 + GROUP <= T; g0 += GROUP) {
+    edge.open_group(g0, g0 + GROUP);
+#pragma unroll
+    for (int s = 0; s < GROUP; ++s) step(g0 + s, s == GROUP - 1);
+    edge.close_group(g0, g0 + GROUP, lane);
+  }
+  if (g0 < T) {  // the last steps, fewer than a group
+    edge.open_group(g0, T);
+#pragma unroll
+    for (int s = 0; s < GROUP; ++s)
+      if (g0 + s < T) step(g0 + s, g0 + s == T - 1);
+  }
+  __syncthreads();
+  const long long c1 = clock64();
+  const uint64_t t1 = globaltimer();
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (lane + 32 * j < width) out[(size_t)b * S + base + lane + 32 * j] = a[j];
+  if (threadIdx.x == 0) {
+    ns[b] = t1 - t0;
+    cycles[b] = c1 - c0;
+  }
+}
+
 // variants (b), (c), (d): blockDim.x >= S threads, state s on thread s
 template <bool LOAD, bool STORE>
 __global__ void probe_shared(const float* __restrict__ logp, float* __restrict__ out,
@@ -150,14 +233,16 @@ cudaError_t with_k(int k, F f) {
 
 }  // namespace
 
-extern "C" int ctc_probe_variants() { return 6; }
+extern "C" int ctc_probe_variants() { return 7; }
 
 // One launch of `variant` over B sequences of T steps: the last rows into
 // out (B, S), and per block the loop's ns and cycles. `alphas` (B, T, S) is
-// written by variants 4 and 5 only. S <= 128. Returns cudaGetLastError().
+// written by variants 4 and 5 only. S <= 128 (variant 6: S <= 1024). Returns
+// cudaGetLastError().
 extern "C" int ctc_probe_launch(int variant, const void* logp, void* out, void* alphas,
                                 void* ns, void* cycles, int B, int T, int S, void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || S > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || T <= 0 || S <= 0 || S > (variant == 6 ? BAND * MAX_WARPS : 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(logp);
   float* o = static_cast<float*>(out);
@@ -189,6 +274,11 @@ extern "C" int ctc_probe_launch(int variant, const void* logp, void* out, void* 
       probe_shared<true, true><<<B, threads, smem, st>>>(lp, o, static_cast<float*>(alphas), n,
                                                          c, T, S);
       break;
+    case 6: {
+      const int warps = (S + BAND - 1) / BAND;
+      probe_bands<BAND_K><<<B, 32 * warps, band_smem_bytes(warps), st>>>(lp, o, n, c, T, S);
+      break;
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,8 +12,10 @@ pair computes it::
 On CUDA tensors the recursion and its reverse (beta) pass are the two kernels
 of ``csrc/ctc_dp.cu``, paired by a ``torch.autograd.Function``, launched as
 :func:`kernel_plan` lays them out (one warp a sequence with the row in
-registers, or one block a sequence for wide rows; the chunk of frames staged
-ahead in shared memory); beside them
+registers and a chunk of frames staged ahead in shared memory; for wider
+rows several warps a sequence, each a band of the row in registers, passing
+edge states to its neighbour; for the widest one block a sequence); beside
+them
 stands the plain PyTorch version (a Python loop over ``T`` on ``(B, S)``
 rows, differentiated by autograd), which CPU tensors and the tests use.
 Log-softmax and the gather ``logp[..., ext]`` stay outside the Function, so
@@ -48,39 +50,50 @@ __all__ = [
     "ctc_per_seq_loss_reference",
     "ctc_per_seq_loss_kernel",
     "kernel_plan",
+    "block_plan",
+    "launch_fwd",
+    "launch_bwd",
 ]
 
 LOG_EPS = -1e5
 
 # the kernels' fixed shapes (csrc/ctc_dp.cu)
 MAX_K = 8             # states a lane holds on the one-warp path: S <= 32 * MAX_K
+BAND = 64             # states a warp's band holds on the band path (csrc/ctc_band.cuh)
+MAX_WARPS = 16        # warps a block on the band path: S <= BAND * MAX_WARPS
 STAGES = 2            # ring slots: chunk c+1 is copied while chunk c is read
 MAX_THREADS = 1024    # threads a block on the block path (a strided loop beyond)
 CHUNK = 32            # frames a chunk at most
 SMEM_LIMIT = 232448   # shared memory a block may use on the H100 (227 KB)
+PATHS = ("warp", "band", "block")  # the launchers' path codes, in order
 
 
 class Plan(NamedTuple):
     """How the kernel pair is launched for ``(B, T, S)``: ``B`` blocks."""
-    path: str        # "warp": one warp a sequence; "block": one block a sequence
+    path: str        # "warp": one warp a sequence; "band": several warps a sequence,
+    #                  each a band of states; "block": one thread a state
     k: int           # states a lane holds (the register row); 0 on the block path
     threads: int     # a block's
-    chunk: int       # frames a ring slot holds; 1 on the block path (a register a step ahead)
+    chunk: int       # frames a ring slot holds; 1 on the block path (a register
+    #                  a step ahead)
     fwd_smem: int    # dynamic shared memory a block, bytes
     bwd_smem: int
+    # the band launcher lays out its block itself (csrc/ctc_band.cuh): k,
+    # chunk and shared memory are 0 there
 
 
 def kernel_plan(b, t, s):
     """The launch plan of the kernel pair for ``logp_ext (b, t, s)``, or
     ValueError where the kernels take none. The one place that sizes the
-    kernels' shared memory.
+    kernels' shared memory and chooses their path, by shape alone.
 
-    ``S <= 32 * MAX_K``: one warp a sequence, each lane holding ``k =
+    ``S <= 32 * MAX_K`` (256): one warp a sequence, each lane holding ``k =
     ceil(S/32)`` states, and a ring of ``STAGES`` slots of ``chunk =
     min(CHUNK, T)`` frames of log-probs (backward: and of alphas, then one
-    word a lane). Wider rows: one block a sequence, one thread a state up to
-    1024, the skip mask and two rows in shared memory; a row whose three do
-    not fit in 227 KB is refused.
+    word a lane). ``S < BAND * MAX_WARPS`` (1024): ``ceil(S / BAND)`` warps
+    a sequence, each a band of ``BAND`` states in registers, the launcher
+    sizing the edge rings in shared memory (``csrc/ctc_band.cuh``). Wider
+    rows: :func:`block_plan`.
     """
     if b < 0 or t < 1 or s < 1 or s % 2 == 0:
         raise ValueError(f"ctc_dp kernel: need B >= 0, T >= 1 and odd S = 2L+1, "
@@ -90,11 +103,22 @@ def kernel_plan(b, t, s):
         chunk = min(CHUNK, t)
         ring = STAGES * chunk * s * 4
         return Plan("warp", k, 32, chunk, ring, 2 * ring + 32 * 4)
+    warps = -(-s // BAND)
+    if warps <= MAX_WARPS:
+        return Plan("band", 0, 32 * warps, 0, 0, 0)
+    return block_plan(s)
+
+
+def block_plan(s):
+    """The block path's plan at ``S``, the widest rows' in :func:`kernel_plan`
+    and the first design's at any width: one block a sequence, one thread a
+    state up to 1024, the skip mask and two rows in shared memory; a row
+    whose three do not fit in 227 KB is refused."""
     smem = (3 * s + 4) * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"ctc_dp kernel: S={s} does not fit the skip mask and two rows in "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    return Plan("block", 0, min(MAX_THREADS, 32 * k), 1, smem, smem)
+    return Plan("block", 0, min(MAX_THREADS, 32 * -(-s // 32)), 1, smem, smem)
 
 
 def _lse3(a, b, c):
@@ -115,9 +139,10 @@ def ctc_dp_reference(logp_ext, logit_lengths, allowed, label_lengths):
     allow = torch.where(allowed, 0.0, LOG_EPS).to(logp_ext.dtype)
     alpha = logp_ext.new_full((b, s), LOG_EPS)
     alpha[:, 0] = 0.0
-    for i in range(t):
-        new = logp_ext[:, i] + _lse3(alpha, _shift_right(alpha, 1),
-                                     _shift_right(alpha, 2) + allow)
+    # frames by unbind: one stack in the backward (a select a frame would
+    # build and fill a (B, T, S) gradient every frame)
+    for i, frame in enumerate(logp_ext.unbind(1)):
+        new = frame + _lse3(alpha, _shift_right(alpha, 1), _shift_right(alpha, 2) + allow)
         alpha = torch.where((logit_lengths > i)[:, None], new, alpha)
     s2 = 2 * label_lengths.long()
     a2 = alpha.gather(1, s2[:, None])[:, 0]
@@ -128,7 +153,7 @@ def ctc_dp_reference(logp_ext, logit_lengths, allowed, label_lengths):
 def _library():
     lib = _build.load("ctc_dp")
     if lib.ctc_dp_fwd_launch.argtypes is None:  # pointers must not be cut to 32 bits
-        plan = [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+        plan = [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
         lib.ctc_dp_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + plan
         lib.ctc_dp_fwd_launch.restype = ctypes.c_int
         lib.ctc_dp_bwd_launch.argtypes = [ctypes.c_void_p] * 8 + plan
@@ -166,20 +191,8 @@ def _raise_on(rc, lib, name):
 def ctc_dp_fwd(logp_ext, logit_lengths, allowed, label_lengths):
     """Launch the forward kernel: ``(loss (B,), alphas (B, T, S))``, float32.
     CUDA tensors only; counted in ``ctc_dp_fwd.launches``."""
-    logp, lens, allow, llens = _check("ctc_dp_fwd", logp_ext, logit_lengths, allowed,
-                                      label_lengths)
-    b, t, s = logp.shape
-    plan = kernel_plan(b, t, s)
-    alphas = torch.empty_like(logp)
-    loss = torch.empty(b, dtype=torch.float32, device=logp.device)
-    if b:
-        lib = _library()
-        with torch.cuda.device(logp.device):
-            rc = lib.ctc_dp_fwd_launch(
-                logp.data_ptr(), lens.data_ptr(), llens.data_ptr(), allow.data_ptr(),
-                alphas.data_ptr(), loss.data_ptr(), b, t, s, plan.k, plan.threads, plan.chunk,
-                plan.fwd_smem, torch.cuda.current_stream(logp.device).cuda_stream)
-        _raise_on(rc, lib, "ctc_dp_fwd")
+    loss, alphas = launch_fwd(None, logp_ext, logit_lengths, allowed, label_lengths)
+    if loss.shape[0]:
         ctc_dp_fwd.launches += 1
     return loss, alphas
 
@@ -187,13 +200,46 @@ def ctc_dp_fwd(logp_ext, logit_lengths, allowed, label_lengths):
 ctc_dp_fwd.launches = 0
 
 
+def launch_fwd(plan, logp_ext, logit_lengths, allowed, label_lengths):
+    """:func:`ctc_dp_fwd` by ``plan`` (``None``: :func:`kernel_plan`'s; or
+    another path that takes ``S``, such as :func:`block_plan`), not counted:
+    for timing one path beside another at one shape."""
+    logp, lens, allow, llens = _check("ctc_dp_fwd", logp_ext, logit_lengths, allowed,
+                                      label_lengths)
+    b, t, s = logp.shape
+    plan = kernel_plan(b, t, s) if plan is None else plan
+    alphas = torch.empty_like(logp)
+    loss = torch.empty(b, dtype=torch.float32, device=logp.device)
+    if b:
+        lib = _library()
+        with torch.cuda.device(logp.device):
+            rc = lib.ctc_dp_fwd_launch(
+                logp.data_ptr(), lens.data_ptr(), llens.data_ptr(), allow.data_ptr(),
+                alphas.data_ptr(), loss.data_ptr(), b, t, s, PATHS.index(plan.path), plan.k,
+                plan.threads, plan.chunk, plan.fwd_smem,
+                torch.cuda.current_stream(logp.device).cuda_stream)
+        _raise_on(rc, lib, "ctc_dp_fwd")
+    return loss, alphas
+
+
 def ctc_dp_bwd(logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g):
     """Launch the backward kernel: ``dL/dlogp_ext (B, T, S)`` for the upstream
     cotangent ``g (B,)``. CUDA tensors only; counted in ``ctc_dp_bwd.launches``."""
+    grad = launch_bwd(None, logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g)
+    if grad.shape[0]:
+        ctc_dp_bwd.launches += 1
+    return grad
+
+
+ctc_dp_bwd.launches = 0
+
+
+def launch_bwd(plan, logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g):
+    """:func:`ctc_dp_bwd` by ``plan``, not counted, as :func:`launch_fwd`."""
     logp, lens, allow, llens = _check("ctc_dp_bwd", logp_ext, logit_lengths, allowed,
                                       label_lengths)
     b, t, s = logp.shape
-    plan = kernel_plan(b, t, s)
+    plan = kernel_plan(b, t, s) if plan is None else plan
     if alphas.shape != logp.shape or alphas.dtype != torch.float32:
         raise ValueError("ctc_dp_bwd: alphas must be float32 of logp_ext's shape")
     alphas = alphas.contiguous()
@@ -208,14 +254,10 @@ def ctc_dp_bwd(logp_ext, alphas, logit_lengths, allowed, label_lengths, loss, g)
             rc = lib.ctc_dp_bwd_launch(
                 logp.data_ptr(), alphas.data_ptr(), lens.data_ptr(), llens.data_ptr(),
                 allow.data_ptr(), loss.data_ptr(), g.data_ptr(), grad.data_ptr(), b, t, s,
-                plan.k, plan.threads, plan.chunk, plan.bwd_smem,
+                PATHS.index(plan.path), plan.k, plan.threads, plan.chunk, plan.bwd_smem,
                 torch.cuda.current_stream(logp.device).cuda_stream)
         _raise_on(rc, lib, "ctc_dp_bwd")
-        ctc_dp_bwd.launches += 1
     return grad
-
-
-ctc_dp_bwd.launches = 0
 
 
 class _CtcDp(torch.autograd.Function):

@@ -12,7 +12,7 @@ from logging.handlers import RotatingFileHandler
 
 import torch
 
-__all__ = ["get_logger", "process_rank"]
+__all__ = ["get_logger", "print_log", "process_rank"]
 
 _LOGGERS = {}
 
@@ -65,3 +65,8 @@ def get_logger(name="mindaudio_torch", log_dir=None, rank=None, stdout_ranks=(0,
 
     _LOGGERS[name] = (cfg_key, logger)
     return logger
+
+
+def print_log(msg, logger=None, level=logging.INFO):
+    """Log ``msg`` at ``level`` through ``logger`` (the default logger when none)."""
+    (logger or get_logger()).log(level, msg)

@@ -16,7 +16,26 @@ __all__ = [
     "subsequent_mask",
     "subsequent_chunk_mask",
     "add_optional_chunk_mask",
+    "mask_finished_scores",
+    "mask_finished_preds",
 ]
+
+NEG_INF = -1.0e9
+
+
+def mask_finished_scores(score, end_flag):
+    """Beam-search bookkeeping: on the rows whose hypothesis ended keep one
+    branch alive, branch 0 at score 0 and the others at ``NEG_INF``.
+    ``score (B*beam, beam)``, ``end_flag (B*beam, 1)`` bool."""
+    first = torch.arange(score.shape[-1], device=score.device) == 0
+    finished = end_flag.bool()
+    return torch.where(finished & ~first, NEG_INF, torch.where(finished & first, 0.0, score))
+
+
+def mask_finished_preds(pred, end_flag, eos):
+    """Beam-search bookkeeping: the rows whose hypothesis ended predict
+    ``eos`` on every branch. ``pred (B*beam, beam)``, ``end_flag (B*beam, 1)``."""
+    return torch.where(end_flag.bool(), eos, pred)
 
 
 def make_pad_mask(lengths, max_len):

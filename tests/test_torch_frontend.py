@@ -135,6 +135,25 @@ class TestMasks:
                                             generator=torch.Generator().manual_seed(0))
         assert out.shape == (1, 4, 4) and out.dtype == torch.bool
 
+    @pytest.mark.parametrize("dtype", [np.float32, np.int64])
+    def test_mask_finished(self, dtype):
+        """The beam bookkeeping of finished rows, on the same numpy inputs:
+        scores (one alive branch at 0, the others at -1e9) and predictions
+        (every branch ``eos``)."""
+        rng = np.random.default_rng(5)
+        end = np.array([[True], [False], [True], [False], [False], [True]])
+        if dtype == np.float32:
+            x = rng.standard_normal((6, 3)).astype(dtype)
+            want = np.asarray(jmask.mask_finished_scores(jnp.asarray(x), jnp.asarray(end)))
+            got = tmask.mask_finished_scores(torch.from_numpy(x), torch.from_numpy(end))
+        else:
+            x = rng.integers(0, 50, (6, 3)).astype(dtype)
+            want = np.asarray(jmask.mask_finished_preds(jnp.asarray(x), jnp.asarray(end), 49))
+            got = tmask.mask_finished_preds(torch.from_numpy(x), torch.from_numpy(end), 49)
+        # the input's type (JAX without x64 gives int32 for int64)
+        assert got.dtype == torch.from_numpy(x).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+
 
 class TestCommon:
     def test_pad_and_sos_eos(self):

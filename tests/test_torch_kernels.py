@@ -163,6 +163,24 @@ CTC_CASES = {
     "unalignable_rows": (3, 6, 5, 7, [6, 4, 2], [5, 5, 3], 0),
     "unalignable_beside_alignable": (4, 10, 12, 9, [10, 8, 10, 3], [12, 9, 4, 6], 0),
     "unalignable_wide_rows": (3, 16, 140, 20, [16, 12, 6], [140, 100, 20], 0),  # S = 281
+    # the band path's edges (64 states a warp): the first and last S of 5
+    # warps, the first of 6, the last of 12 and first of 13, the last of 16;
+    # then the first width left to the block path
+    "band_edge_257": (2, 140, 128, 40, None, [128, 60], 0),
+    "band_edge_319": (2, 170, 159, 40, None, [159, 78], 0),
+    "band_edge_321": (2, 171, 160, 40, None, [160, 79], 0),
+    "band_edge_767": (2, 395, 383, 40, None, [383, 190], 0),
+    "band_edge_769": (2, 396, 384, 40, None, [384, 191], 0),
+    "band_edge_1023": (2, 524, 511, 40, None, [511, 260], 0),
+    "block_edge_1025": (2, 525, 512, 40, None, [512, 261], 0),
+    # DeepSpeech2's S = 701 on the band path: a zero length beside full ones;
+    # lengths 45 and 38: the forward's groups of 4 steps end short, the
+    # backward's (after its first step) short at 38 and whole at 45; rows
+    # that cannot be aligned beside one that can
+    "wide_zero_length_beside_full_length": (4, 40, 350, 29, [40, 0, 40, 21], [15, 350, 0, 10],
+                                            28),
+    "wide_t_not_a_multiple_of_the_chunk": (3, 45, 350, 29, [45, 45, 38], [20, 14, 9], 28),
+    "unalignable_wide_rows_701": (3, 30, 350, 29, [30, 24, 12], [350, 100, 5], 28),
     # the one-warp kernel's lane and register edges: S = 63, 65, 127, 129
     "lane_edge_63": (3, 70, 31, 60, None, [31, 15, 8], 0),
     "lane_edge_65": (3, 70, 32, 60, None, [32, 16, 9], 0),
@@ -174,7 +192,7 @@ CTC_CASES = {
     "zero_length_beside_full_length": (4, 40, 8, 15, [40, 0, 40, 21], [8, 3, 0, 5], 0),
     "lengths_differ_per_row": (4, 50, 12, 30, [50, 33, 41, 26], [12, 7, 10, 3], 0),
     # DeepSpeech2's train step at the 1250-frame bucket: labels padded to 350
-    # (S = 701, the block path), 29 characters with the blank last, ragged
+    # (S = 701, the band path), 29 characters with the blank last, ragged
     "deepspeech2_block_path": (64, 626, 350, 29, [626] + _DS2.integers(469, 627, 63).tolist(),
                                [350] + _DS2.integers(80, 351, 63).tolist(), 28),
 }

@@ -203,6 +203,21 @@ class TestConvBlocks:
         _close(tx, jx)
         _close(tpos, jpos, 0, 0)
 
+    @pytest.mark.parametrize("pos_enc", ["abs_pos", "no_pos"])
+    def test_conv2d_subsampling4_pos_enc(self, rng, pos_enc):
+        """The other two encodings: abs_pos adds the table to the scaled
+        input; no_pos (``NoPositionalEncoding``) leaves the input unscaled
+        and returns a zero table."""
+        x = rng.standard_normal((2, 29, 20)).astype(np.float32)
+        jm = jl.Conv2dSubsampling4(16, pos_enc=pos_enc)
+        p = _init(jm, 6, jnp.asarray(x))
+        tm = _port(tl.Conv2dSubsampling4(20, 16, pos_enc=pos_enc), p)
+        jx, jpos = jm.apply({"params": p}, jnp.asarray(x))
+        tx, tpos = tm(_t(x))
+        assert tpos.shape == jpos.shape
+        _close(tx, jx)
+        _close(tpos, jpos, 0, 0)
+
 
 class TestConformerBlocks:
     D, H, FFN = 32, 4, 64

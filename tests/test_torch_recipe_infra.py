@@ -12,6 +12,7 @@ cast back the same way on both sides).
 
 import importlib
 import itertools
+import logging
 import os
 import time
 
@@ -185,6 +186,23 @@ def test_logger_matches_jax(tmp_path):
         lines[name] = text.split(" ", 2)[2].replace(f"t_parity_{name}", "NAME")
     assert lines["torch"] == lines["jax"] == "[rank 3] INFO NAME: step 7 loss 1.2500"
     assert tlog.process_rank() == 0  # no process group here
+
+
+def test_print_log_matches_jax(tmp_path):
+    """``print_log`` through a given logger, at a given level."""
+    lines = {}
+    for name, mod in (("jax", jlog), ("torch", tlog)):
+        log_dir = tmp_path / name
+        logger = mod.get_logger(f"t_print_{name}", log_dir=str(log_dir), rank=0,
+                                stdout_ranks=())
+        mod.print_log("epoch 3 done", logger)
+        mod.print_log("lr too high", logger, level=logging.WARNING)
+        for h in logger.handlers:
+            h.flush()
+        text = (log_dir / f"t_print_{name}.log").read_text().strip().splitlines()
+        lines[name] = [t.split(" ", 2)[2].replace(f"t_print_{name}", "NAME") for t in text]
+    assert lines["torch"] == lines["jax"] == ["[rank 0] INFO NAME: epoch 3 done",
+                                              "[rank 0] WARNING NAME: lr too high"]
 
 
 def test_logger_reconfigures_on_explicit_args(tmp_path):
