@@ -276,7 +276,21 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    ``PAR_ONE_RANK`` would run the same code at world size 1 over NCCL. Two
    processes on one card, their collectives copied through the host by
    gloo, measure correctness and the layer's overheads, not a multi-GPU
-   speed. The ranks are this script run as ``--parallel-worker``.
+   speed. The ranks are this script run as ``--parallel-worker``;
+18. the public API, through the package-level names alone: (a) every name of
+   every ``__init__`` of the port resolves and is the object of that name in
+   the module it is imported from; (b) the port's tutorial notebook's code
+   cells run as written (``DEVICE = "cuda"``), its device cells on the card;
+   (c) phase 4's 16 waveforms are written as float32 WAV files at their own
+   lengths with ``mindaudio_torch.write``, read back with
+   ``mindaudio_torch.read``, moved to the card by ``pin_memory``, and served
+   by a ``models.ASRModel`` with phase 4's seed-0 weights through
+   ``utils.ASRInference`` (int8, bf16): greedy and rescoring must give phase
+   4's hypotheses, with phase 4's int8 GEMM launch count a batch; their
+   latencies are printed beside phase 4's; (d) ``ops.fused_logmel`` at (16,
+   220500) equal bit for bit to ``ops.logmel.fused_logmel``, one kernel
+   launch a call; (e) ``pin_memory`` of nested arrays and tensors: tensors on
+   the card equal to their sources, other leaves unchanged.
 
 The last two lines are a JSON object ``{"kernels": [...]}`` and the result
 line ``{"ok": true, "device": {...}}``. Float32 comparisons run with TF32 off
@@ -284,8 +298,10 @@ for both matrix products and cuDNN convolutions.
 """
 
 import collections
+import contextlib
 import copy
 import functools
+import io
 import json
 import os
 import statistics
@@ -2921,7 +2937,7 @@ def dsp_on_card(card):
     module's "highest" precision (TF32 off, held to the tolerance stated
     per op) and once at "high" (TF32 on: reported, held only to be
     finite)."""
-    from mindaudio_torch.ops import resample as rs
+    from mindaudio_torch.ops.resample import resample
     from mindaudio_torch.ops import spectral as sp
 
     rng = np.random.default_rng(21)
@@ -2931,7 +2947,7 @@ def dsp_on_card(card):
     for orig in (44100, 14400, 17600):
         x = torch.from_numpy((0.1 * rng.standard_normal((16, orig * 10))).astype(np.float32))
         cases.append((f"resample {orig}->16000 (16 x 10 s)", 1e-5, x,
-                      functools.partial(rs.resample, orig_freq=orig, new_freq=16000)))
+                      functools.partial(resample, orig_freq=orig, new_freq=16000)))
     spec = sp.stft(torch.from_numpy(rng.standard_normal((16, 128000))).double(), n_fft=512,
                    device="cpu").float()
     cases.append(("istft (16, 257, 1001)", 1e-5, spec,
@@ -3669,6 +3685,203 @@ def parallel_phase(launch_counters, card):
     return out
 
 
+def init_exports():
+    """``{package: {name: module it is imported from}}`` for every
+    ``from .module import name`` of every ``__init__.py`` of the port, read
+    from the files' syntax trees, and each package's ``__all__``."""
+    import ast
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mindaudio_torch")
+    out = {}
+    for dirpath, _, files in sorted(os.walk(root)):
+        if "__init__.py" not in files or "recipes" in os.path.relpath(dirpath, root).split(os.sep):
+            continue
+        rel = os.path.relpath(dirpath, os.path.dirname(root)).replace(os.sep, ".")
+        names = out[rel] = {}
+        with open(os.path.join(dirpath, "__init__.py")) as f:
+            for node in ast.parse(f.read()).body:
+                if isinstance(node, ast.ImportFrom) and node.level == 1:
+                    for a in node.names:
+                        if a.name != "*" and not (a.asname or a.name).startswith("_"):
+                            names[a.asname or a.name] = node.module or ""
+    return out
+
+
+def public_api_phase(launch_counters, card, wav_np, served):
+    """Phase 18: the public API (see the module docstring). ``served`` holds
+    phase 4's frames, hypotheses, latencies and int8 launch count;
+    ``launch_counters`` (the four kernel wrappers) are set to 0 just before
+    the served batch and read just after. Returns the summary."""
+    import importlib
+    import tempfile
+
+    import mindaudio_torch as ma
+
+    out = {"card": card}
+    # (a) every package-level name is the object of its module
+    resolved = 0
+    for pkg, names in init_exports().items():
+        mod = importlib.import_module(pkg)
+        for name in getattr(mod, "__all__", ()):
+            getattr(mod, name)
+            resolved += 1
+        for name, src in names.items():
+            got = getattr(mod, name)
+            source = importlib.import_module(".".join(filter(None, (pkg, src))))
+            want = (importlib.import_module(f"{source.__name__}.{name}")
+                    if isinstance(got, type(ma)) else getattr(source, name))
+            if got is not want:
+                raise AssertionError(f"{pkg}.{name} is not {source.__name__}.{name}")
+            resolved += 1
+    out["names_resolved"] = resolved
+    log(f"public api (a): {resolved} package-level names resolve to the objects of their "
+        "modules")
+
+    # (b) the tutorial's code cells as written, on the card
+    nb_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tutorials",
+                           "audio_data_processing_with_mindaudio_torch.ipynb")
+    with open(nb_path) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    if cells[0] != 'DEVICE = "cuda"\n':
+        raise AssertionError(f"tutorial: the first code cell is {cells[0]!r}")
+    for c in launch_counters:
+        c.launches = 0
+    t = time.perf_counter()
+    ns = {}
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        for i, src in enumerate(cells):
+            exec(compile(src, f"<tutorial cell {i}>", "exec"), ns)  # noqa: S102
+    torch.cuda.synchronize()
+    out["tutorial_seconds"] = time.perf_counter() - t
+    out["tutorial_launches"] = {c.__name__: c.launches for c in launch_counters}
+    on_card = {k: ns[k].device.type for k in ("feats_dev", "logmel", "aug", "out")}
+    if set(on_card.values()) != {"cuda"} or out["tutorial_launches"]["fused_logmel"] != 1:
+        raise AssertionError(f"tutorial: device cells off the card {on_card} or log-mel "
+                             f"launches {out['tutorial_launches']}")
+    log(f"public api (b): the tutorial's {len(cells)} code cells ran on the card in "
+        f"{out['tutorial_seconds']:.2f} s, launches {out['tutorial_launches']}; its last "
+        f"lines: {printed.getvalue().strip().splitlines()[-2:]}")
+    ns.clear()
+
+    # (c) WAV files -> read -> pin_memory -> the flagship served by the
+    # package-level names, phase 4's weights, hypotheses and launch count
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_public_api_") as root:
+        paths = []
+        for i, row in enumerate(wav_np):
+            n = int(np.flatnonzero(row)[-1]) + 1  # the utterance without its padding
+            paths.append(os.path.join(root, f"utt{i:02d}.wav"))
+            ma.write(paths[-1], row[:n], SAMPLE_RATE)
+        reads = [ma.read(p) for p in paths]
+    if any(sr != SAMPLE_RATE or x.dtype != np.float32 for x, sr in reads):
+        raise AssertionError("public api: a WAV file read back at another rate or dtype")
+    wavs = np.zeros((len(reads), SAMPLES), np.float32)
+    for i, (x, _) in enumerate(reads):
+        wavs[i, : len(x)] = x
+    frames = np.array([1 + (len(x) - 400) // 160 for x, _ in reads])
+    if not (np.array_equal(wavs, wav_np) and np.array_equal(frames, served["frames"])):
+        raise AssertionError("public api: the WAV round trip changed the waveforms")
+    batch = ma.pin_memory({"wav": wavs, "frames": frames})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = ma.models.ASRModel(VOCAB, input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS,
+                               ffn_dim=FFN, num_encoder_layers=ENC_LAYERS,
+                               num_decoder_layers=DEC_LAYERS, kernel_size=CONV_KERNEL,
+                               device="cuda").reset_parameters(gen).eval()
+    serving = ma.utils.ASRInference(model, beam_size=BEAM, max_tgt_len=MAX_TGT,
+                                    weight_quant="int8", weight_quant_min_size=QUANT_MIN,
+                                    dtype=torch.bfloat16)
+
+    def serve():
+        times = {}
+        t = time.perf_counter()
+        feats = ma.ops.kaldi_fbank(batch["wav"], num_mel_bins=N_MELS, device="cuda")
+        torch.cuda.synchronize()
+        times["fbank"] = time.perf_counter() - t
+        t = time.perf_counter()
+        greedy = serving.ctc_greedy_search(feats, batch["frames"])
+        times["ctc_greedy_search"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rescored = serving.attention_rescoring_batch(feats, batch["frames"])
+        times["attention_rescoring_batch"] = time.perf_counter() - t
+        return greedy, rescored, times
+
+    serve()  # warm-up, as phase 4
+    for c in launch_counters:
+        c.launches = 0
+    (hyps, _), rescored, times = serve()
+    out["launches"] = {c.__name__: c.launches for c in launch_counters}
+    same_greedy = hyps == served["hyps"]
+    same_rescored = [h for h, _ in rescored] == [h for h, _ in served["rescored"]]
+    # latencies in turns (phase 4's serve, this one, this one, phase 4's),
+    # twice: one reading of each in phase 4 follows the host's load
+    turns = {"phase4": collections.defaultdict(list), "public": collections.defaultdict(list)}
+    for _ in range(2):
+        for side in ("phase4", "public", "public", "phase4"):
+            res = served["serve"]()[1:] if side == "phase4" else serve()
+            for name, sec in res[-1].items():
+                turns[side][name].append(1e3 * sec)
+            if [h for h, _ in res[1]] != [h for h, _ in served["rescored"]]:
+                raise AssertionError(f"public api: {side} rescoring changed its hypotheses")
+    out.update(same_greedy_hyps=same_greedy, same_rescored_hyps=same_rescored,
+               latency_ms={k: 1e3 * v for k, v in times.items()},
+               phase4_latency_ms={k: 1e3 * v for k, v in served["times"].items()},
+               turns_ms={side: dict(v) for side, v in turns.items()})
+    for name in times:
+        mine, theirs = (statistics.median(turns[s][name]) for s in ("public", "phase4"))
+        log(f"public api (c) latency {name}: {1e3 * times[name]:.1f} ms per batch of {BATCH} x "
+            f"10 s, phase 4 {1e3 * served['times'][name]:.1f}; in turns, medians of 4: "
+            f"{mine:.1f} against phase 4's serve() {theirs:.1f} (ratio {mine / theirs:.3f}; "
+            f"ranges {min(turns['public'][name]):.1f}-{max(turns['public'][name]):.1f} and "
+            f"{min(turns['phase4'][name]):.1f}-{max(turns['phase4'][name]):.1f}) on {card}")
+    log(f"public api (c): int8_matmul launches {out['launches']['int8_matmul']} (phase 4: "
+        f"{served['launches']}); greedy hypotheses as phase 4's {same_greedy}, rescored "
+        f"{same_rescored}")
+    if out["launches"]["int8_matmul"] != served["launches"]:
+        raise AssertionError(f"public api: int8_matmul launched {out['launches']} times, "
+                             f"phase 4 {served['launches']}")
+    if any(out["launches"][k] for k in ("ctc_dp_fwd", "ctc_dp_bwd", "fused_logmel")):
+        raise AssertionError(f"public api: serving launched {out['launches']}")
+    if not (same_greedy and same_rescored):
+        raise AssertionError("public api: the hypotheses differ from phase 4's")
+    del serving, model, batch, served["serve"]
+    torch.cuda.empty_cache()
+
+    # (d) ops.fused_logmel is the log-mel entry point, bit for bit
+    from mindaudio_torch.ops import logmel
+
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (16, 220500)).astype(np.float32)).cuda()
+    tts = dict(sample_rate=22050, n_fft=1024, hop_length=256, n_mels=80)
+    logmel.fused_logmel.launches = 0
+    a = ma.ops.fused_logmel(x, **tts)
+    b = logmel.fused_logmel(x, **tts)
+    out["fused_logmel"] = {"bit_equal": bool(torch.equal(a, b)),
+                           "launches": logmel.fused_logmel.launches,
+                           "same_object": ma.ops.fused_logmel is logmel.fused_logmel}
+    log(f"public api (d): ops.fused_logmel at {tuple(x.shape)} -> {tuple(a.shape)}: "
+        f"{out['fused_logmel']}")
+    if not (out["fused_logmel"]["bit_equal"] and out["fused_logmel"]["launches"] == 2
+            and torch.isfinite(a).all()):
+        raise AssertionError(f"public api: ops.fused_logmel {out['fused_logmel']}")
+
+    # (e) pin_memory of a nested batch
+    rng = np.random.default_rng(19)
+    src = {"wav": rng.standard_normal((4, 16000)).astype(np.float32),
+           "pair": (torch.arange(7), rng.integers(0, 9, (3, 5))), "name": "utt", "n": 4}
+    moved = ma.pin_memory(src)
+    torch.cuda.synchronize()
+    leaves = [(moved["wav"], src["wav"]), (moved["pair"][0], src["pair"][0]),
+              (moved["pair"][1], src["pair"][1])]
+    ok = (all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+              and np.array_equal(t.cpu().numpy(), np.asarray(s)) for t, s in leaves)
+          and isinstance(moved["pair"], tuple) and moved["name"] == "utt" and moved["n"] == 4)
+    out["pin_memory_ok"] = ok
+    log(f"public api (e): pin_memory moved {len(leaves)} tensors of a nested batch to the card "
+        f"equal to their sources, other leaves unchanged: {ok}")
+    if not ok:
+        raise AssertionError("public api: pin_memory")
+    return out
+
+
 PHASE_SECONDS = {}
 _PHASE_START = [None, None]
 
@@ -3912,8 +4125,12 @@ def main():
             raise AssertionError(f"{quant_mode}: best token differs at {decided_differ} "
                                  "frames that are not near-ties")
 
-    # free the serving models before the training phases
-    del serving, gpu, cpu, model
+    # phase 18 serves the same batch through the package-level names, timed
+    # in turns with this phase's serve() (its int8 model stays on the card)
+    served = {"frames": frames, "hyps": hyps, "rescored": rescored, "times": times,
+              "launches": launches, "serve": serve}
+    # free the float models before the training phases
+    del gpu, cpu, model
     torch.cuda.empty_cache()
 
     phase_seconds(5)
@@ -4120,6 +4337,12 @@ def main():
     par_ctc = {name: parallel[name]["ctc_launches_per_rank"]
                for name in (*PAR_TWO_RANKS, *PAR_ONE_RANK)}
 
+    phase_seconds(18)
+    # 18. the public API: the flagship served through the package-level names
+    public = public_api_phase([quant.int8_matmul, ctc_dp.ctc_dp_fwd, ctc_dp.ctc_dp_bwd,
+                               logmel.fused_logmel], card, wav_np, served)
+    log("public_api: " + json.dumps(public))
+
     phase_seconds(None)
     log("seconds a phase: " + json.dumps(PHASE_SECONDS))
 
@@ -4154,6 +4377,7 @@ def main():
         "fastspeech2_launches": tts_launches["int8_matmul"],
         "wavegrad_launches": wg_launches["int8_matmul"],
         "int8_remat_launches": i8_launches["int8_matmul"],
+        "public_api_launches": public["launches"]["int8_matmul"],
     }, {
         "name": "ctc_dp_fwd", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/ctc_dp.cu",
@@ -4205,6 +4429,7 @@ def main():
         "fastspeech2_launches": tts_launches["fused_logmel"],
         "wavegrad_launches": wg_launches["fused_logmel"],
         "int8_remat_launches": i8_launches["fused_logmel"],
+        "public_api_launches": public["launches"]["fused_logmel"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ package's sort is not stable and may keep another of two tied prefixes.
 the source and the flags). Nothing is built at import. A failed build or
 load raises: there is no Python fallback here (the Python DP,
 ``utils.recognize.ctc_prefix_beam_dp``, is the plain version the tests hold
-this one against).
+this one against); :func:`available` and :func:`beam_available` report
+whether each library builds and loads, and nothing consults them to fall
+back.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 
 from ..ops._build import compile_parallel, hashed_lib_path
 
-__all__ = ["build", "ctc_prefix_beam_batch", "wav_read_batch"]
+__all__ = ["build", "available", "wav_read_batch", "beam_available", "ctc_prefix_beam_batch"]
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "build"
@@ -74,6 +76,26 @@ def _load(name):
         fn.argtypes, fn.restype = argtypes, restype
         _loaded[name] = lib
     return lib
+
+
+def _loads(name):
+    try:
+        _load(name)
+    except Exception:
+        return False
+    return True
+
+
+def available():
+    """Whether the WAV loader builds and loads. A query only: no caller falls
+    back on it, and the loader's entry point raises when it is missing."""
+    return _loads("wav_loader")
+
+
+def beam_available():
+    """Whether the prefix-beam DP builds and loads (a query, as
+    :func:`available`)."""
+    return _loads("ctc_beam")
 
 
 def ctc_prefix_beam_batch(top_logp, top_idx, n_valid, beam_size, blank_id=0, max_len=None):

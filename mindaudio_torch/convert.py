@@ -87,15 +87,15 @@ _CELL_LEAVES = {(f"{side}{g}", "kernel") for side in "ih" for g in "ifgo"} | {
     (f"h{g}", "bias") for g in "ifgo"}
 
 
-def _gates(cell, side, leaf):
+def _gates(cell, side, leaf, dtype):
     """One cell's ``<side>i``, ``<side>f``, ``<side>g``, ``<side>o`` leaves
     stacked along the output axis: kernels ``(in, H)`` → ``(4H, in)``,
     biases → ``(4H,)``."""
-    arrs = [np.asarray(cell[(side + g, leaf)], np.float32) for g in "ifgo"]
+    arrs = [np.asarray(cell[(side + g, leaf)], dtype) for g in "ifgo"]
     return np.concatenate([a.T if leaf == "kernel" else a for a in arrs])
 
 
-def _lstm_cells(leaves):
+def _lstm_cells(leaves, dtype):
     """Split the leaves of flax ``OptimizedLSTMCell_<n>`` modules off
     ``leaves``; returns ``(the other leaves, {key: tensor})`` with the
     cells stacked into the port's BiLSTM parameters."""
@@ -119,21 +119,22 @@ def _lstm_cells(leaves):
         prefix = ".".join(filter(None, (module_name(scope), f"lstm_{i}")))
         for name, side, leaf in (("weight_ih", "i", "kernel"), ("weight_hh", "h", "kernel"),
                                  ("bias", "h", "bias")):
-            arr = np.stack([_gates(dirs[d], side, leaf) for d in (0, 1)])
+            arr = np.stack([_gates(dirs[d], side, leaf, dtype) for d in (0, 1)])
             state[f"{prefix}.{name}"] = torch.from_numpy(arr)
     return rest, state
 
 
-def convert_params(params, batch_stats=None):
+def convert_params(params, batch_stats=None, dtype=np.float32):
     """Nested dict of arrays (``model.init(...)["params"]``, and optionally
-    its ``"batch_stats"``) → float32 ``state_dict`` tensors (CPU) keyed by the
-    port's parameter and buffer names."""
+    its ``"batch_stats"``) → ``state_dict`` tensors (CPU) keyed by the port's
+    parameter and buffer names, cast to ``dtype`` (float32 by default;
+    float64 carries a float64 reference's leaves unrounded)."""
     leaves = list(_flatten(params))
     if batch_stats is not None:
         leaves += [(path[:-1] + (_STATS[path[-1]],), leaf) for path, leaf in _flatten(batch_stats)]
-    leaves, state = _lstm_cells(leaves)
+    leaves, state = _lstm_cells(leaves, dtype)
     for path, leaf in leaves:
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = np.asarray(leaf, dtype=dtype)
         *mod, leaf_name = path
         if leaf_name == "kernel":
             arr, leaf_name = arr.transpose(_KERNEL_LAYOUT[arr.ndim]), "weight"

@@ -7,7 +7,9 @@ container sizes such as 24-bit are repacked left-justified into the smallest
 integer type that holds them), IEEE float32/float64, and partial reads by
 ``offset``/``duration`` in seconds that seek to the requested bytes of the
 data chunk. int16/int32 samples are normalized to [-1, 1) on read.
-``write`` writes little-endian RIFF at the array's own sample width.
+``write`` writes RIFF, or RIFX with ``big_endian``, at the array's own
+sample width or packed to 24 bits. ``pin_memory`` and ``recursive_to`` move
+nested arrays onto the card.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
-__all__ = ["read", "write", "info"]
+from .. import resolve_device
+
+__all__ = ["read", "write", "info", "pin_memory", "recursive_to"]
 
 _PCM = 0x0001
 _IEEE_FLOAT = 0x0003
@@ -188,8 +193,8 @@ def read(file, offset=0.0, duration=None):
     return data, int(rate)
 
 
-def write(file, data, sr):
-    """Write a numpy array as an uncompressed little-endian RIFF WAV file.
+def write(file, data, sr, bits=None, big_endian=False):
+    """Write a numpy array as an uncompressed WAV file.
 
     Args:
         file: output path or open binary file handle.
@@ -198,6 +203,10 @@ def write(file, data, sr):
             (float16 upcast to float32), integers/uint8 as PCM at their
             itemsize.
         sr: sample rate in samples/sec.
+        bits: optional PCM depth override. ``bits=24`` with int32 input
+            packs the top three bytes of each sample (the exact inverse of
+            the 24-bit left-justified read).
+        big_endian: write a RIFX file with big-endian samples.
     """
     data = np.asarray(data)
     if data.dtype in (np.float16,):
@@ -206,31 +215,44 @@ def write(file, data, sr):
     if kind not in "if" and not (kind == "u" and data.dtype.itemsize == 1):
         raise ValueError(f"Unsupported data type '{data.dtype}'")
 
+    e = ">" if big_endian else "<"
     channels = 1 if data.ndim == 1 else data.shape[1]
-    bit_depth = data.dtype.itemsize * 8
-    fmt_code = _IEEE_FLOAT if kind == "f" else _PCM
-    body = np.ascontiguousarray(data.astype(data.dtype.newbyteorder("<"))).tobytes()
+    if bits == 24:
+        if kind not in "iu" or data.dtype.itemsize != 4:
+            raise ValueError("bits=24 requires int32 input (left-justified)")
+        bit_depth = 24
+        body = data.astype(f"{e}i4").reshape(-1).view("u1").reshape(-1, 4)
+        body = (body[:, 1:] if not big_endian else body[:, :3]).tobytes()
+        fmt_code = _PCM
+    elif bits is not None and bits != data.dtype.itemsize * 8:
+        raise ValueError(f"bits={bits} unsupported for dtype {data.dtype}")
+    else:
+        bit_depth = data.dtype.itemsize * 8
+        fmt_code = _IEEE_FLOAT if kind == "f" else _PCM
+        body = np.ascontiguousarray(
+            data.astype(data.dtype.newbyteorder(e))).tobytes()
 
     block_align = channels * (bit_depth // 8)
-    fmt_body = struct.pack("<HHIIHH", fmt_code, channels, int(sr),
+    fmt_body = struct.pack(e + "HHIIHH", fmt_code, channels, int(sr),
                            int(sr) * block_align, block_align, bit_depth)
     if fmt_code != _PCM:
         fmt_body += b"\x00\x00"  # cbSize for non-PCM
 
     header = b"WAVE"
-    header += b"fmt " + struct.pack("<I", len(fmt_body)) + fmt_body
+    header += b"fmt " + struct.pack(e + "I", len(fmt_body)) + fmt_body
     if fmt_code != _PCM:
-        header += b"fact" + struct.pack("<II", 4, data.shape[0])
-    header += b"data" + struct.pack("<I", len(body))
+        header += b"fact" + struct.pack(e + "II", 4, data.shape[0])
+    header += b"data" + struct.pack(e + "I", len(body))
     if len(header) + len(body) > 0xFFFFFFFF:
         raise ValueError("Data exceeds wave file size limit")
 
-    riff_size = struct.pack("<I", len(header) + len(body) + (len(body) % 2))
+    magic = b"RIFX" if big_endian else b"RIFF"
+    riff_size = struct.pack(e + "I", len(header) + len(body) + (len(body) % 2))
 
     own = not hasattr(file, "write")
     f = open(file, "wb") if own else file
     try:
-        f.write(b"RIFF" + riff_size + header + body)
+        f.write(magic + riff_size + header + body)
         if len(body) % 2:
             f.write(b"\x00")
     finally:
@@ -238,3 +260,31 @@ def write(file, data, sr):
             f.close()
         else:
             f.seek(0)
+
+
+def recursive_to(data, device="cuda"):
+    """Move every array and tensor of a (possibly nested) list, tuple or dict
+    to ``device`` as a tensor; other leaves pass through unchanged.
+
+    NumPy arrays become tensors sharing their memory on the host. On a CUDA
+    device each host tensor is pinned and copied with ``non_blocking=True``,
+    so the copies overlap the host's work until the stream reaches them.
+    """
+    device = resolve_device(device)
+    if isinstance(data, (list, tuple)):
+        return type(data)(recursive_to(v, device) for v in data)
+    if isinstance(data, dict):
+        return {k: recursive_to(v, device) for k, v in data.items()}
+    if isinstance(data, np.ndarray):
+        data = torch.from_numpy(np.ascontiguousarray(data))
+    if not isinstance(data, torch.Tensor):
+        return data
+    if device.type == "cuda" and data.device.type == "cpu":
+        return data.pin_memory().to(device, non_blocking=True)
+    return data.to(device)
+
+
+def pin_memory(data, device="cuda"):
+    """The reference's ``pin_memory`` (pinned host memory for fast transfer):
+    :func:`recursive_to` onto ``device``."""
+    return recursive_to(data, device)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["create_json_dict", "build_split", "LIBRI_SPEECH_TARBALLS"]
+__all__ = ["prepare_librispeech", "create_json_dict", "build_split", "LIBRI_SPEECH_TARBALLS"]
 
 # the tarballs of each split, as the JAX package's URLs name them
 LIBRI_SPEECH_TARBALLS = {
@@ -98,3 +98,13 @@ def create_json_dict(data_path: str, tarballs=None):
             _relayout_tree(extracted, split_dir, manifest)
             shutil.rmtree(extracted, ignore_errors=True)
         _write_manifest(split_dir, split, manifest)
+
+
+def prepare_librispeech(data_path: str, download: bool = False, tarballs=None):
+    """:func:`create_json_dict` over the tarballs already in ``data_path``.
+    The port never downloads: ``download=True`` raises."""
+    if download:
+        raise ValueError("prepare_librispeech: the port does not download; put the "
+                         "tarballs (OpenSLR resource 12) in data_path and pass "
+                         "download=False")
+    create_json_dict(data_path, tarballs)

@@ -4,9 +4,8 @@
 and ``tests/test_torch_ecapa_recipe.py`` (the recipes' collates call
 ``resample`` for speed perturbation and for sources that are not at 16 kHz;
 ``augment.reverberate`` calls ``rescale``), the rest by
-``tests/test_torch_data_copies.py``. ``resample``'s kaiser filter shape is
-fixed to torchaudio's defaults, the values the JAX package's arguments
-default to."""
+``tests/test_torch_data_copies.py``. ``resample``'s kaiser filter shape
+defaults to torchaudio's, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -40,18 +39,20 @@ __all__ = [
 ]
 
 
-# the kaiser filter's shape: torchaudio's defaults, as in the JAX package
-_LOWPASS_FILTER_WIDTH = 6
-_ROLLOFF = 0.99
+# torchaudio's Kaiser window shape parameter, ``beta=None``'s value
 _BETA = 14.769656459379492
 
 
-def resample(waveform, orig_freq=16000, new_freq=16000, res_type="fft"):
+def resample(waveform, orig_freq=16000, new_freq=16000, res_type="fft",
+             lowpass_filter_width=6, rolloff=0.99, beta=None):
     """Resample along the last axis.
 
     ``"fft"``/``"scipy"``: FFT resampling (``scipy.signal.resample``) to
     ``ceil(n * new / orig)`` samples. ``"kaiser"``: a polyphase
-    Kaiser-windowed sinc (torchaudio's ``sinc_interp_kaiser``).
+    Kaiser-windowed sinc (torchaudio's ``sinc_interp_kaiser``) with
+    ``lowpass_filter_width`` zero crossings a side, its cutoff at ``rolloff``
+    of the lower Nyquist rate and the window's ``beta`` (``None``: torchaudio's
+    default).
     """
     waveform = np.asarray(waveform)
     if orig_freq == new_freq:
@@ -66,7 +67,8 @@ def resample(waveform, orig_freq=16000, new_freq=16000, res_type="fft"):
 
     g = gcd(int(orig_freq), int(new_freq))
     orig, new = int(orig_freq) // g, int(new_freq) // g
-    lowpass_filter_width, rolloff, beta = _LOWPASS_FILTER_WIDTH, _ROLLOFF, _BETA
+    if beta is None:
+        beta = _BETA
     base_freq = min(orig, new) * rolloff / 2.0  # cycles per input sample pair
     width = int(np.ceil(lowpass_filter_width * orig / (min(orig, new) * rolloff)))
     idx = np.arange(-width, width + orig, dtype=np.float64)

@@ -45,7 +45,8 @@ __all__ = ["ConformerEncoderLayer", "ConformerEncoder", "DecoderLayer",
 
 class ConformerEncoderLayer(nn.Module):
     """Macaron FFN → rel-pos MHSA → conv module → FFN → LayerNorm, pre-norm,
-    with half-step FFN residuals.
+    with half-step FFN residuals; ``use_macaron=False`` drops the macaron FFN
+    (and its norm) and takes the final FFN's whole step.
 
     Streaming: with ``att_cache`` (the ``(k, v)`` of the frames before this
     chunk) and ``cnn_cache`` (the conv module's left context) the layer
@@ -55,11 +56,13 @@ class ConformerEncoderLayer(nn.Module):
     def __init__(self, d_model, head_num, ffn_dim, dropout_rate=0.1,
                  attention_dropout_rate=0.0, kernel_size=15, causal_conv=False,
                  norm_type="layer_norm", int8_ffn=False, moe_experts=0, moe_top_k=2,
-                 moe_capacity_factor=1.25, moe_mesh=None):
+                 moe_capacity_factor=1.25, moe_mesh=None, use_macaron=True):
         super().__init__()
-        self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.feed_forward_macaron = PositionwiseFeedForward(
-            d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
+        self.use_macaron = use_macaron
+        if use_macaron:
+            self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.feed_forward_macaron = PositionwiseFeedForward(
+                d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = RelPositionMultiHeadedAttention(
             d_model, head_num, attention_dropout_rate)
@@ -79,7 +82,8 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x, mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None):
         streaming = att_cache is not None
-        x = x + 0.5 * self.dropout(self.feed_forward_macaron(self.norm_ff_macaron(x)))
+        if self.use_macaron:
+            x = x + 0.5 * self.dropout(self.feed_forward_macaron(self.norm_ff_macaron(x)))
         y = self.norm_mha(x)
         y = self.self_attn(y, y, y, mask=mask, pos_emb=pos_emb, kv_cache=att_cache)
         if streaming:
@@ -92,7 +96,7 @@ class ConformerEncoderLayer(nn.Module):
         y = self.norm_ff(x)
         y = (self.feed_forward(y, mask_pad) if isinstance(self.feed_forward, MoEFeedForward)
              else self.feed_forward(y))
-        x = x + 0.5 * self.dropout(y)
+        x = x + (0.5 if self.use_macaron else 1.0) * self.dropout(y)
         out = self.norm_final(x)
         if streaming:
             return out, new_att_cache, new_cnn_cache if cnn_cache is not None else None

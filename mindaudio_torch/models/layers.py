@@ -134,15 +134,18 @@ class GLU(nn.Module):
 
 
 class GlobalCMVN(nn.Module):
-    """``(x - mean) * istd`` with fixed float32 statistics."""
+    """``(x - mean) * istd`` with fixed float32 statistics; ``x - mean``
+    alone with ``norm_var=False``."""
 
-    def __init__(self, mean, istd):
+    def __init__(self, mean, istd, norm_var=True):
         super().__init__()
+        self.norm_var = norm_var
         self.register_buffer("mean", torch.as_tensor(mean, dtype=torch.float32))
         self.register_buffer("istd", torch.as_tensor(istd, dtype=torch.float32))
 
     def forward(self, x):
-        return (x - self.mean.to(x.dtype)) * self.istd.to(x.dtype)
+        x = x - self.mean.to(x.dtype)
+        return x * self.istd.to(x.dtype) if self.norm_var else x
 
 
 class BatchNorm(nn.Module):

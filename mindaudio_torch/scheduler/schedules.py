@@ -119,3 +119,12 @@ def linear_schedule(init_value, end_value, transition_steps):
         return (init_value - end_value) * frac + end_value
 
     return schedule
+
+
+# the reference's class names, bound to the schedules as the JAX package
+# binds them
+ASRWarmupLR = asr_warmup_lr
+ASRLearningRate = warmup_poly_lr
+CosineLearningRate = cosine_lr
+
+__all__ += ["ASRWarmupLR", "ASRLearningRate", "CosineLearningRate"]

@@ -87,7 +87,7 @@ def skip_nonfinite_update(optimizer, loss, grads, stats=(), group=None):
 
 
 def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
-                    autocast_dtype=None, loss_fn=None, mesh=None):
+                    autocast_dtype=None, loss_fn=None, mesh=None, skip_nonfinite=True):
     """Build ``step(batch) -> metrics`` for ``model(batch) -> (loss, metrics)``.
 
     Args:
@@ -105,12 +105,15 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
             generator it samples its chunk masks from).
         mesh: the ``parallel.mesh.Mesh`` the step runs over (``None``: one
             process); each rank passes its own rows of the global batch.
+        skip_nonfinite: skip a batch with a non-finite loss or gradient
+            (the default); ``False`` applies every update as it comes, NaN
+            included, as the JAX package's ``skip_nonfinite=False`` does.
 
     Returns:
         ``step``; its metrics (``loss``, the model's own, ``grad_norm``) are
-        device scalars, detached. A batch with a non-finite loss or gradient
-        is skipped (:func:`skip_nonfinite_update`), the model's batch-norm
-        running statistics included.
+        device scalars, detached. With ``skip_nonfinite`` a batch with a
+        non-finite loss or gradient is skipped (:func:`skip_nonfinite_update`),
+        the model's batch-norm running statistics included.
     """
     params = optimizer.params
     device_type = params[0].device.type
@@ -123,7 +126,8 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
             return model(batch)
 
     def step(batch):
-        old_stats = [s.clone() for s in stats]  # the forward updates them in place
+        # the forward updates the running statistics in place
+        old_stats = [s.clone() for s in stats] if skip_nonfinite else None
         if features_fn is not None:
             with torch.no_grad():
                 feats, feat_lens = features_fn(batch)
@@ -144,7 +148,10 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
                 metrics = dict(zip(keys, mean / mesh.size("data")))
         if grad_clip_norm is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip_norm, groups)
-        skip_nonfinite_update(optimizer, metrics["loss"], grads, zip(stats, old_stats), agree)
+        if skip_nonfinite:
+            skip_nonfinite_update(optimizer, metrics["loss"], grads, zip(stats, old_stats), agree)
+        else:
+            optimizer.step(grads)
         return metrics
 
     return step

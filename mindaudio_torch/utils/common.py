@@ -26,8 +26,9 @@ __all__ = [
 IGNORE_ID = -1
 
 
-def pad_sequence(sequences, padding_value=0, max_len=None):
-    """Pad a list of 1-D/2-D arrays to a common (or given) length, batch first."""
+def pad_sequence(sequences, batch_first=True, padding_value=0, max_len=None):
+    """Pad a list of 1-D/2-D arrays to a common (or given) length: ``(B, T,
+    ...)``, or ``(T, B, ...)`` with ``batch_first=False``."""
     seqs = [np.asarray(s) for s in sequences]
     if max_len is None:
         max_len = max(s.shape[0] for s in seqs)
@@ -35,6 +36,8 @@ def pad_sequence(sequences, padding_value=0, max_len=None):
     out = np.full((len(seqs), max_len) + trailing, padding_value, dtype=seqs[0].dtype)
     for i, s in enumerate(seqs):
         out[i, : s.shape[0]] = s[:max_len]
+    if not batch_first:
+        out = np.swapaxes(out, 0, 1)
     return out
 
 

@@ -22,11 +22,12 @@ import torch
 from mindaudio_tpu.ops import filterbanks as jfb
 from mindaudio_tpu.ops import spectral as jspec
 from mindaudio_torch.ops import filterbanks as tfb
-from mindaudio_torch.ops import resample as tresample
 from mindaudio_torch.ops import spectral as tspec
 
 # the JAX package's ops/__init__ re-exports the function under the module's name
 jresample = importlib.import_module("mindaudio_tpu.ops.resample")
+# and so does the port's
+tresample = importlib.import_module("mindaudio_torch.ops.resample")
 
 torch.set_num_threads(1)
 

@@ -14,11 +14,12 @@ package.
   gradients of every parameter of ``sum(out^2 * valid)`` are held against
   the port's dense encoder in float64, 1e-6 of each leaf's largest (of
   1e-6 of the largest gradient for the key biases, whose exact gradient is
-  zero): in
-  float32 this loss is ill-conditioned (the port's and JAX's dense encoders
-  differ by 12 % on the subsampling convs' gradients and on the key biases,
-  whose exact gradient is zero), so the float32 comparison would not see a
-  wrong collective.
+  zero): in float32 this loss is ill-conditioned (the port's and JAX's
+  dense encoders differ by 12 % on the subsampling convs' gradients and on
+  the key biases), so the float32 comparison would not see a wrong
+  collective. ``tests/test_torch_encoder_grad64.py`` holds the dense
+  encoders' float64 gradients of this loss against each other, 1e-5 of
+  each leaf's largest: the float32 gap is the loss's conditioning.
 - The refusals: chunked attention, a subsampled length the group does not
   divide, and Ulysses with a head count it does not divide.
 """

@@ -31,7 +31,6 @@ from mindaudio_tpu.utils import cmvn as jcmvn
 from mindaudio_tpu.utils import tokenizer as jtok
 from mindaudio_torch.data import io as tio
 from mindaudio_torch.data.processing import resample as tresample
-from mindaudio_torch.metric import wer as twer
 from mindaudio_torch.train import checkpoint as tckpt
 from mindaudio_torch.train import config as tconfig
 from mindaudio_torch.train import log as tlog
@@ -40,6 +39,7 @@ from mindaudio_torch.utils import cmvn as tcmvn
 from mindaudio_torch.utils import tokenizer as ttok
 
 jwer = importlib.import_module("mindaudio_tpu.metric.wer")  # the package exports wer()
+twer = importlib.import_module("mindaudio_torch.metric.wer")  # as the JAX package does
 
 torch.set_num_threads(1)
 
@@ -256,8 +256,8 @@ def test_wav_write_read_matches_jax(tmp_path, kind):
     data = _wav_data(kind, np.random.default_rng(6))
     path = str(tmp_path / "t.wav")
     if kind in ("int24", "big_endian"):
-        # the port writes RIFF at the array's width only: these two files,
-        # which the port must still read, come from the JAX writer
+        # these two files come from the JAX writer (the port's is held to it
+        # byte for byte by tests/test_torch_public_api.py)
         kw = {"bits": 24} if kind == "int24" else {"big_endian": True}
         jio.write(path, data, 16000, **kw)
     else:
