@@ -3,6 +3,11 @@
 A worker thread runs the batch iterator (and a ``transform``, typically
 :class:`ToDevice`, the copy to the card) while the training loop runs the
 previous step, through a small queue.
+
+Under a ``torch.profiler`` session the worker records the spans
+``prefetch.produce`` (the iterator's ``next``) and ``prefetch.stage`` (the
+transform), and the consumer ``prefetch.wait`` (its wait on the queue)
+(``train.profiler.annotate``).
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from .profiler import annotate
 
 __all__ = ["prefetch", "ToDevice"]
 
@@ -45,11 +52,15 @@ def prefetch(iterator: Iterable, size: int = 2,
 
     def worker():
         try:
-            for item in iterator:
-                if stop.is_set():
+            items = iter(iterator)
+            while True:
+                with annotate("prefetch.produce"):
+                    item = next(items, _SENTINEL)
+                if item is _SENTINEL or stop.is_set():
                     return
                 if transform is not None:
-                    item = transform(item)
+                    with annotate("prefetch.stage"):
+                        item = transform(item)
                 if not _put(item):
                     return
         except BaseException as e:  # re-raised on the consumer side
@@ -62,7 +73,8 @@ def prefetch(iterator: Iterable, size: int = 2,
 
     try:
         while True:
-            item = q.get()
+            with annotate("prefetch.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]

@@ -1,16 +1,25 @@
 """Profiling and per-step timing (port of ``mindaudio_tpu.train.profiler``):
-``torch.profiler`` traces for TensorBoard or Perfetto, named regions on
-their timeline, and a host-side step timer with an ETA."""
+``torch.profiler`` traces for TensorBoard or Perfetto, the program's named
+spans on their timeline, and a host-side step timer with an ETA."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
 
 import torch
 
-__all__ = ["trace", "annotate", "StepTimer"]
+__all__ = ["trace", "annotate", "timeline", "StepTimer"]
+
+# the spans recorded while a profiler session records: (name, thread id,
+# start_ns, end_ns) on the wall clock, the newest 2**17 kept
+_SPANS = collections.deque(maxlen=1 << 17)
+_OFF = contextlib.nullcontext()
+# torch's own flag, set while any profiler session records
+_autograd_profiler = torch.autograd.profiler
 
 
 @contextlib.contextmanager
@@ -27,9 +36,47 @@ def trace(log_dir):
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+class _Span:
+    """One recorded span: a ``record_function`` range, and an entry of the
+    timeline when it closes."""
+
+    __slots__ = ("name", "_range", "_start")
+
+    def __init__(self, name):
+        self.name = name
+        self._range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self._range.__exit__(*exc)
+        _SPANS.append((self.name, threading.get_ident(), self._start, end))
+        return False
+
+
 def annotate(name):
-    """A named region that shows on the trace's timeline."""
-    return torch.profiler.record_function(name)
+    """A named span of the host's work. While a ``torch.profiler`` session
+    records (whatever its activities), the span is kept for :func:`timeline`
+    on the wall clock (``time.time_ns()``, the clock the profiler puts the
+    device's operations on) and shows as a ``record_function`` range in the
+    session's trace. Otherwise it is a shared no-op that costs one read of
+    the profiler's flag. A span reads no device state and never
+    synchronises."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def timeline(t0_ns=None, t1_ns=None):
+    """The recorded spans ``(name, thread id, start_ns, end_ns)`` that
+    overlap ``[t0_ns, t1_ns]`` (``None``: that side open), in the order they
+    closed."""
+    return [s for s in list(_SPANS)
+            if (t0_ns is None or s[3] > t0_ns) and (t1_ns is None or s[2] < t1_ns)]
 
 
 class StepTimer:

@@ -15,6 +15,11 @@ clips, skips and updates alike; the global norm and the finite check add up
 over the ranks that hold pieces of a sharded parameter; the metrics are
 averaged over ``data`` (each rank's loss is its share of the global batch's,
 ``parallel.mesh.data_denominator``).
+
+Under a ``torch.profiler`` session a step records the spans ``train.step``
+and, inside it, ``train.features``, ``train.forward``, ``train.backward``,
+``train.sync_grads`` (over a mesh), ``train.clip`` and ``train.update``
+(``train.profiler.annotate``); otherwise each costs one flag read.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.distributed as dist
 from ..models.layers import running_stats
 from ..parallel.collectives import all_reduce
 from ..parallel.shardings import any_group, shard_groups, sync_grads
+from .profiler import annotate
 
 __all__ = ["clip_by_global_norm", "skip_nonfinite_update", "make_train_step"]
 
@@ -126,32 +132,39 @@ def make_train_step(model, optimizer, features_fn=None, grad_clip_norm=None,
             return model(batch)
 
     def step(batch):
-        # the forward updates the running statistics in place
-        old_stats = [s.clone() for s in stats] if skip_nonfinite else None
-        if features_fn is not None:
-            with torch.no_grad():
-                feats, feat_lens = features_fn(batch)
-            batch = dict(batch, feats=feats, feat_lens=feat_lens)
-        autocast = (torch.autocast(device_type, dtype=autocast_dtype)
-                    if autocast_dtype is not None else contextlib.nullcontext())
-        with autocast:
-            loss, metrics = loss_fn(model, batch)
-        grads = list(torch.autograd.grad(loss, params, allow_unused=True,
-                                         materialize_grads=True))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        if mesh is not None:
-            grads = sync_grads(params, grads, mesh)
-            if data is not None:  # the global batch's metrics
-                keys = sorted(metrics)
-                mean = all_reduce(torch.stack([metrics[k].float() for k in keys]), data)
-                metrics = dict(zip(keys, mean / mesh.size("data")))
-        if grad_clip_norm is not None:
-            grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip_norm, groups)
-        if skip_nonfinite:
-            skip_nonfinite_update(optimizer, metrics["loss"], grads, zip(stats, old_stats), agree)
-        else:
-            optimizer.step(grads)
-        return metrics
+        with annotate("train.step"):
+            # the forward updates the running statistics in place
+            old_stats = [s.clone() for s in stats] if skip_nonfinite else None
+            if features_fn is not None:
+                with annotate("train.features"), torch.no_grad():
+                    feats, feat_lens = features_fn(batch)
+                batch = dict(batch, feats=feats, feat_lens=feat_lens)
+            autocast = (torch.autocast(device_type, dtype=autocast_dtype)
+                        if autocast_dtype is not None else contextlib.nullcontext())
+            with annotate("train.forward"), autocast:
+                loss, metrics = loss_fn(model, batch)
+            with annotate("train.backward"):
+                grads = list(torch.autograd.grad(loss, params, allow_unused=True,
+                                                 materialize_grads=True))
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            if mesh is not None:
+                with annotate("train.sync_grads"):
+                    grads = sync_grads(params, grads, mesh)
+                    if data is not None:  # the global batch's metrics
+                        keys = sorted(metrics)
+                        mean = all_reduce(torch.stack([metrics[k].float() for k in keys]), data)
+                        metrics = dict(zip(keys, mean / mesh.size("data")))
+            if grad_clip_norm is not None:
+                with annotate("train.clip"):
+                    grads, metrics["grad_norm"] = clip_by_global_norm(grads, grad_clip_norm,
+                                                                      groups)
+            with annotate("train.update"):
+                if skip_nonfinite:
+                    skip_nonfinite_update(optimizer, metrics["loss"], grads,
+                                          zip(stats, old_stats), agree)
+                else:
+                    optimizer.step(grads)
+            return metrics
 
     return step
