@@ -79,12 +79,18 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    TF32 bounds), and hold both against float64 on four rows of the bench
    shape; then drive the log-mel entry point as the bench does and count
    its launches;
-7. train the flagship Conformer at full width and depth as the train bench
+7. hold the fused training dropout's two kernels against PyTorch's plain
+   chain on the same bytes at ``conformer-train``'s largest step (Swish and
+   ReLU at 38,807 x 2048 bf16, the residual ``x + 0.5 * dropout(y)`` at
+   38,807 x 256, x float32 and y bf16), forward and gradient within one
+   rounding of float64, timed in turns beside the byte bound; then train the
+   flagship Conformer at full width and depth as the train bench
    builds the step: B=32, the 1027-frame bucket holding 10 s of seeded noise,
    20 labels, dither, SpecAugment, dropout, bf16 autocast, ``ctc_impl="kernel"``,
    AdamW (bf16 first moment), clip 5.0, one batch repeated. Every loss must be
-   finite, the last below the first, the parameters moved, and the CTC
-   kernels' launch counts equal to the number of steps; the same step with
+   finite, the last below the first, the parameters moved, the CTC
+   kernels' launch counts equal to the number of steps, and the fused
+   dropout's 98 a step each way, every application fused; the same step with
    the plain CTC recursion is timed beside it;
 8. one deterministic float32 step (B=2) on the card with the CTC kernels
    against the CPU with the plain recursion; and a poisoned batch, which must
@@ -384,6 +390,14 @@ PAR_BATCH = 8  # the model-parallel layouts' global batch (x 10 s)
 PAR_DS2_BATCH, PAR_DS2_FRAMES, PAR_DS2_LABELS = 64, 400, 60
 PAR_ECAPA_BATCH = 32
 PAR_RECIPE_UTTS, PAR_RECIPE_STEPS = (64, 16, 8), 2
+# the fused training dropout (ops/fused_dropout): checked at conformer-train's
+# largest step, 257 rows x 151 encoder frames, at the FFN's hidden width and
+# at d_model; rate 0.1 drops where a byte is below round(25.6) = 26. A
+# training step of the flagship applies it 98 times: the two position
+# encodings, two FFN activations and four residuals an encoder block, one FFN
+# activation and three residuals a decoder block
+DROPOUT_ROWS, DROPOUT_THRESH = 257 * 151, 26
+DROPOUT_APPLICATIONS = 2 + ENC_LAYERS * 6 + DEC_LAYERS * 4
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -1079,9 +1093,131 @@ def profile_separation():
         torch.cuda.empty_cache()
 
 
+def dropout_judge(fused, chain, exact):
+    """``fused`` against ``exact`` (float64) and the plain ``chain``, both of
+    its type. Returns the worst error as a share of its limit: to ``exact``,
+    half an ulp of the type plus float32's error (2**-20 of the largest
+    value), the one rounding of a float32 evaluation; to ``chain``, the
+    chain's own error plus that."""
+    mantissa = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[fused.dtype]
+    f, c, e = fused.double(), chain.double(), exact.double()
+    slack = 2.0 ** -20 * float(e.abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(e.abs().clamp_min(torch.finfo(fused.dtype).tiny)))
+                     - (mantissa - 1))
+    one = 0.5 * ulp + slack
+    return {"to_exact": float(((f - e).abs() / one).max()),
+            "to_chain": float((((f - c).abs() - (c - e).abs()) / one).max())}
+
+
+def check_fused_dropout():
+    """The fused dropout's two kernels against PyTorch's plain chain
+    (``FastDropout`` on the same bytes) at conformer-train's largest step:
+    Swish and ReLU then dropout at 38,807 x 2048 bf16, and the residual ``x
+    + 0.5 * dropout(y)`` at 38,807 x 256 (x float32, y bf16). Each result,
+    forward and gradient, must lie within one rounding of a float64
+    evaluation (:func:`dropout_judge`). Device time in turns (plain, fused,
+    fused, plain; CUDA events over 50 calls) beside the byte bound: 5 and 7 B
+    an element for the activation forms, 11 and 7 B for the residual."""
+    from torch.nn import functional as F
+
+    from mindaudio_torch.models import layers as tl
+    from mindaudio_torch.ops import fused_dropout as fd
+
+    def ms(fn, iters=50):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def turns(plain, fused):
+        times = [ms(f) for f in (plain, fused, fused, plain)]
+        return (times[1] + times[2]) / 2, (times[0] + times[3]) / 2, times
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    drop = tl.FastDropout(0.1, gen).train()
+    if drop._thresh() != DROPOUT_THRESH:
+        raise AssertionError(f"fused dropout: rate 0.1 drops below {drop._thresh()}")
+    results, keep_prob = {}, 1.0 - DROPOUT_THRESH / 256.0
+    for name, width in (("swish", FFN), ("relu", FFN), ("residual", D_MODEL)):
+        shape, n = (DROPOUT_ROWS, width), DROPOUT_ROWS * width
+        bits = drop.bits(shape, "cuda")
+        kept = bits >= DROPOUT_THRESH
+        y = (3 * torch.randn(shape, device="cuda", generator=gen)).bfloat16()
+        if name == "residual":
+            x = torch.randn(shape, device="cuda", generator=gen)
+            cot = torch.randn(shape, device="cuda", generator=gen)
+            scale = fd.scale_of(DROPOUT_THRESH, 0.5)
+            xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+            chain = xg + 0.5 * drop(yg, bits)
+            chain_dy = torch.autograd.grad(chain, yg, cot, retain_graph=True)[0]
+            out = fd.fused_dropout_fwd(y, bits, DROPOUT_THRESH, scale, x=x)
+            dy = fd.fused_dropout_bwd(cot, bits, DROPOUT_THRESH, scale, torch.bfloat16)
+            exact = x.double() + torch.where(kept, y.double() * 0.5 / keep_prob, 0.0)
+            exact_dy = torch.where(kept, cot.double() * 0.5 / keep_prob, 0.0)
+            fwd = turns(lambda: x + 0.5 * drop(y, bits),
+                        lambda: fd.fused_dropout_fwd(y, bits, DROPOUT_THRESH, scale, x=x))
+            bwd = turns(lambda: torch.autograd.grad(chain, (xg, yg), cot, retain_graph=True),
+                        lambda: fd.fused_dropout_bwd(cot, bits, DROPOUT_THRESH, scale,
+                                                     torch.bfloat16))
+            fwd_bytes, dtypes = 11 * n, "x float32, y bf16, s = 0.5"
+        else:
+            act = tl.Swish() if name == "swish" else F.relu
+            cot = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+            scale = fd.scale_of(DROPOUT_THRESH)
+            yg = y.clone().requires_grad_()
+            chain = drop(act(yg), bits)
+            chain_dy = torch.autograd.grad(chain, yg, cot, retain_graph=True)[0]
+            out = fd.fused_dropout_fwd(y, bits, DROPOUT_THRESH, scale, name)
+            dy = fd.fused_dropout_bwd(cot, bits, DROPOUT_THRESH, scale, torch.bfloat16, name, y)
+            h = y.double()
+            if name == "swish":
+                sig = torch.sigmoid(h)
+                value, deriv = h * sig, sig * (1 + h * (1 - sig))
+            else:
+                value, deriv = torch.relu(h), (h > 0).double()
+            exact = torch.where(kept, value / keep_prob, 0.0)
+            exact_dy = torch.where(kept, cot.double() * deriv / keep_prob, 0.0)
+            fwd = turns(lambda: drop(act(y), bits),
+                        lambda: fd.fused_dropout_fwd(y, bits, DROPOUT_THRESH, scale, name))
+            bwd = turns(lambda: torch.autograd.grad(chain, yg, cot, retain_graph=True),
+                        lambda: fd.fused_dropout_bwd(cot, bits, DROPOUT_THRESH, scale,
+                                                     torch.bfloat16, name, y))
+            fwd_bytes, dtypes = 5 * n, "bf16"
+        r = {"shape": [DROPOUT_ROWS, width], "dtypes": dtypes, "thresh": DROPOUT_THRESH,
+             "fwd_err": dropout_judge(out, chain.detach(), exact),
+             "bwd_err": dropout_judge(dy, chain_dy, exact_dy),
+             "fwd_ms": fwd[0], "plain_fwd_ms": fwd[1], "fwd_turns_ms": fwd[2],
+             "bwd_ms": bwd[0], "plain_bwd_ms": bwd[1], "bwd_turns_ms": bwd[2],
+             "fwd_bound_ms": 1e3 * fwd_bytes / H100_BYTES_PER_S,
+             "bwd_bound_ms": 1e3 * 7 * n / H100_BYTES_PER_S, "bound_by": "bytes"}
+        results[name] = r
+        log(f"fused dropout {name} {DROPOUT_ROWS}x{width} {dtypes}: forward {r['fwd_ms']:.4f} ms "
+            f"(plain chain {r['plain_fwd_ms']:.4f}, bound {r['fwd_bound_ms']:.4f}), backward "
+            f"{r['bwd_ms']:.4f} ms (plain chain {r['plain_bwd_ms']:.4f}, bound "
+            f"{r['bwd_bound_ms']:.4f}); error / limit forward {r['fwd_err']}, backward "
+            f"{r['bwd_err']}")
+        for err in (r["fwd_err"], r["bwd_err"]):
+            if not (err["to_exact"] <= 1.0 and err["to_chain"] <= 1.0):
+                raise AssertionError(f"fused dropout {name}: kernel and plain chain disagree: "
+                                     f"{r}")
+        del bits, kept, y, cot, out, dy, exact, exact_dy, chain, chain_dy
+    torch.cuda.empty_cache()
+    return results
+
+
 def train_phase(ctc_dp, ctc_times):
     """Phase 7 and the poisoned batch of phase 8. Returns the launch counts of
-    the CTC kernels over the train steps."""
+    the CTC kernels over the train steps and those of the fused dropout's
+    (forward, backward)."""
+    from mindaudio_torch.ops import fused_dropout as fd
+    from mindaudio_torch.train import profiler
+
     model, optimizer, step, batch = make_trainer()
     start = [p.detach().clone() for p in model.parameters()]
 
@@ -1094,6 +1230,8 @@ def train_phase(ctc_dp, ctc_times):
 
     torch.cuda.reset_peak_memory_stats()
     ctc_dp.ctc_dp_fwd.launches = ctc_dp.ctc_dp_bwd.launches = 0
+    fd.fused_dropout_fwd.launches = fd.fused_dropout_bwd.launches = 0
+    profiler.reset_dropout_counts()
     metrics, _ = run(TRAIN_WARMUP_STEPS)
     timed = {"kernel": [], "scan": []}
     for impl, n in (("kernel", TRAIN_TIMED_STEPS), ("scan", PLAIN_CTC_STEPS),
@@ -1104,7 +1242,10 @@ def train_phase(ctc_dp, ctc_times):
         timed[impl].append(ms)
     model.ctc_impl = "kernel"
     launches = (ctc_dp.ctc_dp_fwd.launches, ctc_dp.ctc_dp_bwd.launches)
+    dropout_launches = (fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches)
+    applications = profiler.dropout_counts()
     kernel_steps = TRAIN_WARMUP_STEPS + 2 * TRAIN_TIMED_STEPS
+    all_steps = kernel_steps + 2 * PLAIN_CTC_STEPS
 
     losses = [m["loss"].item() for m in metrics]
     first, last = metrics[0], metrics[-1]
@@ -1128,8 +1269,15 @@ def train_phase(ctc_dp, ctc_times):
         raise AssertionError("train: a loss is not finite")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall: {losses[0]} -> {losses[-1]}")
+    log(f"train: fused dropout launches {dropout_launches[0]} forward, {dropout_launches[1]} "
+        f"backward, applications {applications} over {all_steps} steps (expected "
+        f"{DROPOUT_APPLICATIONS} fused a step each way, none plain)")
     if launches != (kernel_steps, kernel_steps):
         raise AssertionError(f"train: CTC kernel launches {launches}, expected {kernel_steps}")
+    want = DROPOUT_APPLICATIONS * all_steps
+    if dropout_launches != (want, want) or applications != {"fused": want, "plain": 0}:
+        raise AssertionError(f"train: fused dropout launches {dropout_launches}, applications "
+                             f"{applications}, expected {want} fused each way")
     if not all((a != b).any() for a, b in zip(start, model.parameters())):
         raise AssertionError("train: some parameter did not move")
     if optimizer.count.item() != len(losses):
@@ -1149,7 +1297,7 @@ def train_phase(ctc_dp, ctc_times):
         f"AdamW count {count} -> {optimizer.count.item()}")
     if np.isfinite(bad_loss) or not same or optimizer.count.item() != count:
         raise AssertionError("poisoned batch: the update was not skipped cleanly")
-    return launches
+    return launches, dropout_launches
 
 
 def card_against_cpu_step():
@@ -2990,9 +3138,10 @@ def int8_remat_phase(launch_counters, card):
     the checkpoint loaded into the float model; then the four settings'
     step times and peaks, remat against the plain step on the card, one
     float32 remat step against the CPU, the W8A8 product at the path's
-    shapes and the DSP ops on the card. ``launch_counters`` are the four
-    kernel wrappers (int8 GEMM, CTC forward and backward, log-mel), set to 0
-    just before the recipe runs and read just after. Returns the summary."""
+    shapes and the DSP ops on the card. ``launch_counters`` are the kernel
+    wrappers (int8 GEMM, CTC forward and backward, log-mel, the fused
+    dropout's forward and backward), set to 0 just before the recipe runs
+    and read just after. Returns the summary."""
     import tempfile
 
     from mindaudio_torch.models.layers import Int8Dense
@@ -3617,7 +3766,7 @@ def parallel_phase(launch_counters, card):
     docstring): the Conformer recipe with ZeRO-1 and its checkpoint resumed
     by one process, then each layout of ``PAR_TWO_RANKS`` (and, at world
     size 1 over NCCL, of ``PAR_ONE_RANK``) held against one process on the
-    global batch. ``launch_counters`` (the four kernel wrappers) are set to
+    global batch. ``launch_counters`` (the kernel wrappers) are set to
     0 here and read after the one-process resume; the ranks report their
     own CTC launches. Returns the summary."""
     import tempfile
@@ -3904,7 +4053,7 @@ def main():
         return parallel_worker(sys.argv[2])
     from mindaudio_torch.models.asr_model import ASRModel
     from mindaudio_torch.ops import _build
-    from mindaudio_torch.ops import ctc_dp, logmel, quant
+    from mindaudio_torch.ops import ctc_dp, fused_dropout, logmel, quant
     from mindaudio_torch.ops.spectral import kaldi_fbank
     from mindaudio_torch.utils.recognize import ASRInference
 
@@ -4270,7 +4419,8 @@ def main():
     phase_seconds(7)
     # 7./8. train at full width; the poisoned batch; one step against the CPU
     flagship = ctc_results["flagship"]
-    ctc_launches = train_phase(ctc_dp, flagship)
+    dropout = check_fused_dropout()
+    ctc_launches, dropout_launches = train_phase(ctc_dp, flagship)
     card_against_cpu_step()
 
     phase_seconds(9)
@@ -4291,7 +4441,8 @@ def main():
 
     phase_seconds(12)
     # 12. the ECAPA-TDNN recipe at full width: no TPU kernel on its path
-    kernels = [quant.int8_matmul, ctc_dp.ctc_dp_fwd, ctc_dp.ctc_dp_bwd, logmel.fused_logmel]
+    kernels = [quant.int8_matmul, ctc_dp.ctc_dp_fwd, ctc_dp.ctc_dp_bwd, logmel.fused_logmel,
+               fused_dropout.fused_dropout_fwd, fused_dropout.fused_dropout_bwd]
     ecapa = ecapa_phase(kernels, card)
     log("ecapa_tdnn: " + json.dumps({"card": card, **{
         k: v for k, v in ecapa.items() if k not in ("losses", "window_ms")}}))
@@ -4359,7 +4510,28 @@ def main():
             "chain_floor_ms_rung_a": r["chain_floor_ms"], "chain_floor_ms_rung_e": r["band_floor_ms"],
             "plain_ms": r[f"plain_{kind}_ms"], "library_ms": r[f"library_{kind}_ms"]}
             for name, r in ds2_ctc.items()}
-    log('kernels: ["int8_matmul", "ctc_dp_fwd", "ctc_dp_bwd", "fused_logmel"]')
+    log('kernels: ["int8_matmul", "ctc_dp_fwd", "ctc_dp_bwd", "fused_logmel", '
+        '"fused_dropout_fwd", "fused_dropout_bwd"]')
+
+    def dropout_entry(kind, index):  # the FFN's Swish form at 38,807 x 2048 bf16
+        head = dropout["swish"]
+        return {
+            "name": f"fused_dropout_{kind}", "route": "cuda",
+            "source": "mindaudio_torch/ops/csrc/fused_dropout.cu",
+            "replaces": None, "launches": dropout_launches[index],
+            "launches_per_step": DROPOUT_APPLICATIONS,
+            "max_err_per_limit": head[f"{kind}_err"]["to_exact"],
+            "ms": head[f"{kind}_ms"], "plain_ms": head[f"plain_{kind}_ms"],
+            "bound_ms": head[f"{kind}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shape": head["shape"] + ["bfloat16", "swish"],
+            "card": card, "shapes": dropout,
+            "ecapa_tdnn_launches": ecapa_launches[f"fused_dropout_{kind}"],
+            "separation_launches": sep_launches[f"fused_dropout_{kind}"],
+            "fastspeech2_launches": tts_launches[f"fused_dropout_{kind}"],
+            "wavegrad_launches": wg_launches[f"fused_dropout_{kind}"],
+            "int8_remat_launches": i8_launches[f"fused_dropout_{kind}"],
+        }
+
     log(json.dumps({"kernels": [{
         "name": "int8_matmul", "route": "cuda",
         "source": "mindaudio_torch/ops/csrc/int8_matmul.cu",
@@ -4430,7 +4602,7 @@ def main():
         "wavegrad_launches": wg_launches["fused_logmel"],
         "int8_remat_launches": i8_launches["fused_logmel"],
         "public_api_launches": public["launches"]["fused_logmel"],
-    }]}))
+    }, dropout_entry("fwd", 0), dropout_entry("bwd", 1)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

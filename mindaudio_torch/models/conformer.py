@@ -83,20 +83,20 @@ class ConformerEncoderLayer(nn.Module):
     def forward(self, x, mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None):
         streaming = att_cache is not None
         if self.use_macaron:
-            x = x + 0.5 * self.dropout(self.feed_forward_macaron(self.norm_ff_macaron(x)))
+            x = self.dropout.drop_add(x, self.feed_forward_macaron(self.norm_ff_macaron(x)), 0.5)
         y = self.norm_mha(x)
         y = self.self_attn(y, y, y, mask=mask, pos_emb=pos_emb, kv_cache=att_cache)
         if streaming:
             y, new_att_cache = y
-        x = x + self.dropout(y)
+        x = self.dropout.drop_add(x, y)
         y = self.conv_module(self.norm_conv(x), mask_pad=mask_pad, cache=cnn_cache)
         if cnn_cache is not None:
             y, new_cnn_cache = y
-        x = x + self.dropout(y)
+        x = self.dropout.drop_add(x, y)
         y = self.norm_ff(x)
         y = (self.feed_forward(y, mask_pad) if isinstance(self.feed_forward, MoEFeedForward)
              else self.feed_forward(y))
-        x = x + (0.5 if self.use_macaron else 1.0) * self.dropout(y)
+        x = self.dropout.drop_add(x, y, 0.5 if self.use_macaron else 1.0)
         out = self.norm_final(x)
         if streaming:
             return out, new_att_cache, new_cnn_cache if cnn_cache is not None else None
@@ -296,10 +296,10 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt, tgt_mask, memory, memory_mask):
         y = self.norm1(tgt)
-        x = tgt + self.dropout(self.self_attn(y, y, y, mask=tgt_mask))
+        x = self.dropout.drop_add(tgt, self.self_attn(y, y, y, mask=tgt_mask))
         y = self.norm2(x)
-        x = x + self.dropout(self.src_attn(y, memory, memory, mask=memory_mask))
-        return x + self.dropout(self.feed_forward(self.norm3(x)))
+        x = self.dropout.drop_add(x, self.src_attn(y, memory, memory, mask=memory_mask))
+        return self.dropout.drop_add(x, self.feed_forward(self.norm3(x)))
 
 
 class TransformerDecoder(nn.Module):

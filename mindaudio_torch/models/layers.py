@@ -24,6 +24,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import check_generator
+from ..ops import fused_dropout
 from ..ops.quant import int8_training_matmul
 from ..parallel.collectives import (
     all_gather,
@@ -80,6 +81,14 @@ class FastDropout(nn.Module):
     training the bytes come from ``generator``, which must be given and must
     live on the input's device (the TPU's random bits cannot be reproduced,
     only their distribution).
+
+    Three forms fuse the dropout with the work beside it: :meth:`drop` (the
+    dropout alone), :meth:`drop_activation` (``dropout(act(h))``) and
+    :meth:`drop_add` (``x + s * dropout(y)``). Where :meth:`fusable` holds
+    they run one kernel of ``ops.fused_dropout`` each way on the bytes that
+    :meth:`bits` draws, as the plain chain would draw them; elsewhere they
+    are that chain. Every training application that draws bytes is counted,
+    fused or plain (``train.profiler.dropout_counts``).
     """
 
     def __init__(self, rate, generator=None):
@@ -87,10 +96,13 @@ class FastDropout(nn.Module):
         self.rate = rate
         self.generator = generator
 
+    def _thresh(self):
+        return int(round(self.rate * 256.0))
+
     def bits(self, shape, device):
         """The uniform bytes of one draw of ``shape``, or ``None`` when the
         dropout is inactive; :meth:`forward` takes them as ``bits``."""
-        thresh = int(round(self.rate * 256.0))
+        thresh = self._thresh()
         if not self.training or thresh <= 0 or thresh >= 256:
             return None
         if self.generator is None:
@@ -102,9 +114,10 @@ class FastDropout(nn.Module):
     def forward(self, x, bits=None):
         """``bits``: bytes drawn by :meth:`bits` for ``x``'s shape (a caller
         whose ranks must draw alike draws once, whatever each rank keeps)."""
-        thresh = int(round(self.rate * 256.0))
+        thresh = self._thresh()
         if not self.training or thresh <= 0:
             return x
+        fused_dropout.applications["plain"] += 1
         if thresh >= 256:
             return torch.zeros_like(x)
         if bits is None:
@@ -112,6 +125,40 @@ class FastDropout(nn.Module):
         keep = bits >= thresh
         keep_prob = 1.0 - thresh / 256.0
         return torch.where(keep, x / keep_prob, 0.0)
+
+    def fusable(self, *tensors):
+        """Whether the fused kernels take an application to ``tensors``: in
+        training, at a rate that keeps some values and drops some, on CUDA
+        tensors of a type the kernels take (float32, bf16, fp16)."""
+        return (self.training and 0 < self._thresh() < 256
+                and all(t.is_cuda and t.dtype in fused_dropout.DTYPES for t in tensors))
+
+    def _fused_bits(self, y):
+        fused_dropout.applications["fused"] += 1
+        return self.bits(y.shape, y.device)
+
+    def drop(self, x):
+        """``self(x)``, fused where :meth:`fusable`."""
+        if not self.fusable(x):
+            return self(x)
+        return fused_dropout.dropout_activation(x, self._fused_bits(x), self._thresh())
+
+    def drop_activation(self, h, activation):
+        """``self(activation(h))``, fused where :meth:`fusable` and
+        ``activation`` is a :class:`Swish` or ``F.relu``."""
+        act = "swish" if isinstance(activation, Swish) else "relu" if activation is F.relu else None
+        if act is None or not self.fusable(h):
+            return self(activation(h))
+        return fused_dropout.dropout_activation(h, self._fused_bits(h), self._thresh(), act)
+
+    def drop_add(self, x, y, scale=None):
+        """``x + self(y)``, or ``x + scale * self(y)``, fused where
+        :meth:`fusable` and ``x`` has ``y``'s shape and device; the output's
+        type is ``torch.result_type(x, y)`` either way."""
+        if not (self.fusable(x, y) and x.shape == y.shape and x.get_device() == y.get_device()):
+            return x + self(y) if scale is None else x + scale * self(y)
+        return fused_dropout.dropout_add(x, y, self._fused_bits(y), self._thresh(),
+                                         1.0 if scale is None else scale)
 
 
 class Swish(nn.Module):
@@ -337,9 +384,10 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x):
         if self.tp_group is not None:
-            h = self.dropout(self.activation(self.w_1(copy_to(x, self.tp_group))))
+            h = self.dropout.drop_activation(self.w_1(copy_to(x, self.tp_group)),
+                                             self.activation)
             return row_parallel(self.w_2, h, self.tp_group)
-        return self.w_2(self.dropout(self.activation(self.w_1(x))))
+        return self.w_2(self.dropout.drop_activation(self.w_1(x), self.activation))
 
 
 def _score_scale(d_k, dtype):
@@ -491,7 +539,7 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x, offset=0):
         x, pos = self._scaled(x, offset)
-        return self.dropout(x + pos), pos
+        return self.dropout.drop(x + pos), pos
 
 
 class RelPositionalEncoding(PositionalEncoding):
@@ -500,7 +548,7 @@ class RelPositionalEncoding(PositionalEncoding):
 
     def forward(self, x, offset=0):
         x, pos = self._scaled(x, offset)
-        return self.dropout(x), pos
+        return self.dropout.drop(x), pos
 
 
 class NoPositionalEncoding(nn.Module):

@@ -91,10 +91,14 @@ def build(names=None):
                             {n: (CSRC / f"{n}.cu", _lib_path(n)) for n in todo})
 
 
-def load(name):
-    """The ctypes library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name, keep_gil=False):
+    """The ctypes library of ``csrc/<name>.cu``, built first if needed.
+    ``keep_gil``: loaded with ``ctypes.PyDLL``, whose calls keep the GIL
+    (for launchers that run hundreds of times a step and never block on
+    Python)."""
+    lib = _loaded.get((name, keep_gil))
     if lib is None:
         build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        dll = ctypes.PyDLL if keep_gil else ctypes.CDLL
+        lib = _loaded[name, keep_gil] = dll(str(_lib_path(name)))
     return lib

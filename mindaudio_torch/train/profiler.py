@@ -1,6 +1,7 @@
 """Profiling and per-step timing (port of ``mindaudio_tpu.train.profiler``):
 ``torch.profiler`` traces for TensorBoard or Perfetto, the program's named
-spans on their timeline, and a host-side step timer with an ETA."""
+spans on their timeline, the dropout's count of fused and plain
+applications, and a host-side step timer with an ETA."""
 
 from __future__ import annotations
 
@@ -12,7 +13,10 @@ import time
 
 import torch
 
-__all__ = ["trace", "annotate", "timeline", "StepTimer"]
+from ..ops import fused_dropout
+
+__all__ = ["trace", "annotate", "timeline", "dropout_counts", "reset_dropout_counts",
+           "StepTimer"]
 
 # the spans recorded while a profiler session records: (name, thread id,
 # start_ns, end_ns) on the wall clock, the newest 2**17 kept
@@ -77,6 +81,22 @@ def timeline(t0_ns=None, t1_ns=None):
     closed."""
     return [s for s in list(_SPANS)
             if (t0_ns is None or s[3] > t0_ns) and (t1_ns is None or s[2] < t1_ns)]
+
+
+def dropout_counts():
+    """``{"fused": n, "plain": m}``: the training-mode applications of
+    ``models.layers.FastDropout`` (those that draw bytes: rate above 0) since
+    the last :func:`reset_dropout_counts`, by whether they ran through the
+    fused kernels (``ops.fused_dropout``) or PyTorch's plain chain. Read it
+    beside :func:`timeline` to see whether the fused path engages; a
+    rematerialized block counts its recomputation again."""
+    return dict(fused_dropout.applications)
+
+
+def reset_dropout_counts():
+    """Set both counts of :func:`dropout_counts` to 0."""
+    for key in fused_dropout.applications:
+        fused_dropout.applications[key] = 0
 
 
 class StepTimer:

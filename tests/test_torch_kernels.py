@@ -7,12 +7,18 @@ package, so it runs where only PyTorch is installed. On the card::
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from mindaudio_torch.loss.ctc_loss import ctc_per_seq_loss
+from mindaudio_torch.models import conformer as tconf
+from mindaudio_torch.models import layers as tl
 from mindaudio_torch.ops import ctc_dp
+from mindaudio_torch.ops import fused_dropout as fd
 from mindaudio_torch.ops import logmel as tmel
 from mindaudio_torch.ops import quant as tq
 from mindaudio_torch.ops.spectral import kaldi_fbank
@@ -318,3 +324,248 @@ def test_random_draws_stay_on_the_device():
         kaldi_fbank(wav, dither=0.1, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     assert torch.isfinite(kaldi_fbank(wav, dither=0.1, generator=gen)).all()
+
+
+# -- the fused dropout (ops/csrc/fused_dropout.cu) ----------------------------
+
+MANTISSA = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+
+
+def _ulp(v, dtype):
+    """One ulp of ``dtype`` at each ``|v|`` (float64)."""
+    a = v.abs().clamp_min(torch.finfo(dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - (MANTISSA[dtype] - 1))
+
+
+def _judge(fused, chain, exact, dtype, narrow):
+    """``fused`` is one rounding to ``dtype`` of a float32 evaluation of
+    ``exact``: within half an ulp of it (plus float32's error, 2**-20 of the
+    largest value), so within one rounding of the plain chain's own error.
+    Where the chain rounds to a 16-bit type on the way (``narrow``), the
+    fused result is no farther from ``exact`` on average than the chain;
+    where it runs in float32 throughout, it is the chain's value."""
+    assert fused.dtype == chain.dtype == dtype
+    f, c, e = fused.double(), chain.double(), exact.double()
+    slack = 2.0 ** -20 * float(e.abs().max())
+    one = 0.5 * _ulp(e, dtype) + slack
+    assert ((f - e).abs() <= one).all(), float(((f - e).abs() - one).max())
+    assert ((f - c).abs() <= (c - e).abs() + one).all()
+    if narrow:
+        assert (f - e).abs().mean() <= (c - e).abs().mean()
+    else:
+        assert ((f - c).abs() <= slack).all()
+
+
+def _view(shape, offset, dtype, gen, scale=3.0):
+    """A random ``shape`` tensor ``offset`` elements into its buffer."""
+    n = int(np.prod(shape))
+    buf = (scale * torch.randn(n + offset, device="cuda", generator=gen)).to(dtype)
+    return buf[offset:].view(shape)
+
+
+def _pair(thresh, seed=11):
+    """Two dropouts at ``thresh`` whose generators start alike."""
+    return [tl.FastDropout(thresh / 256, torch.Generator(device="cuda").manual_seed(seed)).train()
+            for _ in range(2)]
+
+
+ACT_FNS = {"swish": tl.Swish(), "relu": F.relu, "identity": None}
+
+
+def _exact_act(h, act):
+    if act == "swish":
+        return h * torch.sigmoid(h), torch.sigmoid(h) * (1 + h * (1 - torch.sigmoid(h)))
+    if act == "relu":
+        return torch.relu(h), (h > 0).double()
+    return h, torch.ones_like(h)
+
+
+@pytest.mark.parametrize("shape,offset", [((7, 1003), 0), ((7, 1003), 3), ((64, 2048), 0)])
+@pytest.mark.parametrize("thresh", [1, 26, 255])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["swish", "relu", "identity"])
+def test_fused_dropout_activation_matches_plain(act, dtype, thresh, shape, offset):
+    """``drop_activation`` / ``drop`` (one kernel each way) against the plain
+    chain ``FastDropout(act(h))`` on the same bytes: forward and gradient
+    judged by :func:`_judge` against a float64 evaluation, one launch each
+    way, one application counted fused, and the generators left in the same
+    state. Sizes not a multiple of 16 and storage offsets that are not
+    16-byte aligned take the kernels' scalar loop."""
+    g = torch.Generator(device="cuda").manual_seed(thresh + offset)
+    h = _view(shape, offset, dtype, g).requires_grad_()
+    cot = _view(shape, 0, dtype, g, scale=1.0)
+    plain, fused = _pair(thresh)
+    fn = ACT_FNS[act]
+    chain = plain(h if fn is None else fn(h))
+    (chain_grad,) = torch.autograd.grad(chain, h, cot)
+    before = (fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches,
+              dict(fd.applications))
+    out = fused.drop(h) if fn is None else fused.drop_activation(h, fn)
+    (grad,) = torch.autograd.grad(out, h, cot)
+    torch.cuda.synchronize()
+    assert (fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert fd.applications == {"fused": before[2]["fused"] + 1, "plain": before[2]["plain"]}
+    assert torch.equal(plain.generator.get_state(), fused.generator.get_state())
+    # the same bytes again, for the float64 evaluation
+    bits = _pair(thresh)[0].bits(shape, "cuda")
+    scale = 256.0 / (256 - thresh)
+    value, deriv = _exact_act(h.detach().double(), act)
+    kept = bits >= thresh
+    narrow = dtype != torch.float32
+    _judge(out, chain, torch.where(kept, value * scale, 0.0), dtype, narrow)
+    _judge(grad, chain_grad, torch.where(kept, cot.double() * scale * deriv, 0.0), dtype, narrow)
+
+
+@pytest.mark.parametrize("shape,offset", [((7, 1003), 0), ((7, 1003), 3), ((64, 2048), 0)])
+@pytest.mark.parametrize("thresh", [1, 26, 255])
+@pytest.mark.parametrize("s", [None, 0.5])
+@pytest.mark.parametrize("x_dtype,y_dtype", [(torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.float16)])
+def test_fused_dropout_add_matches_plain(x_dtype, y_dtype, s, thresh, shape, offset):
+    """``drop_add`` against ``x + s * FastDropout(y)`` (``x + FastDropout(y)``
+    without ``s``) on the same bytes: the output in ``torch.result_type(x,
+    y)``, the gradient of ``x`` the cotangent itself (cast where ``x``'s type
+    differs) and that of ``y`` judged by :func:`_judge`, one launch each way,
+    the generators left alike."""
+    g = torch.Generator(device="cuda").manual_seed(thresh + offset + 1)
+    x = _view(shape, offset, x_dtype, g).requires_grad_()
+    y = _view(shape, offset, y_dtype, g).requires_grad_()
+    out_dtype = torch.result_type(x, y)
+    cot = _view(shape, 0, out_dtype, g, scale=1.0)
+    plain, fused = _pair(thresh)
+    chain = x + plain(y) if s is None else x + s * plain(y)
+    chain_dx, chain_dy = torch.autograd.grad(chain, (x, y), cot)
+    before = fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches
+    out = fused.drop_add(x, y, s)
+    dx, dy = torch.autograd.grad(out, (x, y), cot)
+    torch.cuda.synchronize()
+    assert (fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(plain.generator.get_state(), fused.generator.get_state())
+    assert dx.dtype == x_dtype and torch.equal(dx, chain_dx)
+    bits = _pair(thresh)[0].bits(shape, "cuda")
+    kept = bits >= thresh
+    scale = (1.0 if s is None else s) * 256.0 / (256 - thresh)
+    exact = x.detach().double() + torch.where(kept, y.detach().double() * scale, 0.0)
+    narrow = y_dtype != torch.float32  # the chain drops y in its own type
+    _judge(out, chain, exact, out_dtype, narrow)
+    _judge(dy, chain_dy, torch.where(kept, cot.double() * scale, 0.0), y_dtype, narrow)
+
+
+def test_fused_dropout_dispatch_on_the_card():
+    """What the fused kernels do not take keeps the plain chain: eval and
+    rate 0 (the identity, not counted), rate 1, float64, an activation not
+    listed, residuals of another shape; each training application that
+    draws is counted once, by the path it took."""
+    h = torch.randn(4, 33, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = dict(fd.applications)
+
+    def moved():
+        return {k: fd.applications[k] - before[k] for k in before}
+
+    d = tl.FastDropout(0.1, gen)
+    assert torch.equal(d.eval().drop_activation(h, tl.Swish()), tl.Swish()(h))
+    assert torch.equal(tl.FastDropout(0.0, gen).train().drop_add(h, h), h + h)
+    assert moved() == {"fused": 0, "plain": 0}
+    assert torch.equal(tl.FastDropout(1.0, gen).train().drop(h), torch.zeros_like(h))
+    d.train()
+    d.drop(h.double())
+    d.drop_activation(h, F.gelu)
+    d.drop_add(h, h[:1])
+    assert moved() == {"fused": 0, "plain": 4}
+    d.drop_activation(h, F.relu)
+    assert moved() == {"fused": 1, "plain": 4}
+    with pytest.raises(ValueError, match="thresh"):
+        fd.fused_dropout_fwd(h, torch.zeros_like(h, dtype=torch.uint8), 0, 1.0)
+
+
+def _encoder(remat, base, seed=9):
+    enc = copy.deepcopy(base)
+    enc.remat = remat
+    enc.train()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for m in enc.modules():
+        if isinstance(m, tl.FastDropout):
+            m.generator = gen
+    return enc, gen
+
+
+@pytest.mark.parametrize("autocast", [False, True])
+def test_fused_dropout_remat_block_is_exact(autocast):
+    """A rematerialized Conformer encoder (``remat_call`` per block) through
+    the fused path gives the gradients and running statistics of the same
+    encoder without remat, bit for bit: the recomputation draws the same
+    bytes; in float32 and under bf16 autocast."""
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.standard_normal((3, 61, 20)).astype(np.float32)).cuda()
+    lens = torch.tensor([61, 50, 37], device="cuda")
+    base = tconf.ConformerEncoder(input_dim=20, d_model=32, head_num=2, ffn_dim=64,
+                                  num_layers=2, kernel_size=5, dropout_rate=0.1,
+                                  norm_type="batch_norm").cuda()
+    with torch.no_grad():
+        for p in base.parameters():
+            p.normal_(0.0, 0.3, generator=torch.Generator(device="cuda").manual_seed(8))
+    results = []
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for remat in (False, True):
+            enc, gen = _encoder(remat, base)
+            before = dict(fd.applications)
+            with torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+                out, _ = enc(feats, lens)
+            grads = torch.autograd.grad(out.float().square().sum(), list(enc.parameters()))
+            assert fd.applications["plain"] == before["plain"]
+            assert fd.applications["fused"] > before["fused"]
+            results.append((grads, [t.clone() for t in tl.running_stats(enc)], gen.get_state()))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    (g0, s0, r0), (g1, s1, r1) = results
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+    assert torch.equal(r0, r1)
+    assert not torch.equal(s0[0], tl.running_stats(base)[0])  # they did move
+
+
+def _asr_batch(b=2, t=41, f=20, vocab=30, labels=(5, 3)):
+    """A small batch in the layout ``ASRModel.forward`` takes (sos = eos =
+    vocab - 1, decoder targets padded with -1)."""
+    rng = np.random.default_rng(0)
+    width = max(labels)
+    y = rng.integers(1, vocab - 1, (b, width))
+    eos = vocab - 1
+    ys_in = np.full((b, width + 1), eos)
+    ys_out = np.full((b, width + 1), -1)
+    for r, k in enumerate(labels):
+        ys_in[r, 1:1 + k], ys_out[r, :k], ys_out[r, k] = y[r, :k], y[r, :k], eos
+    return {"feats": torch.from_numpy(rng.standard_normal((b, t, f)).astype(np.float32)),
+            "feat_lens": torch.tensor([t, t - 8]),
+            "labels": torch.from_numpy(y), "label_lens": torch.tensor(labels),
+            "ys_in": torch.from_numpy(ys_in), "ys_out": torch.from_numpy(ys_out),
+            "ys_lens": torch.tensor(labels) + 1}
+
+
+def test_fused_dropout_every_conformer_application_is_fused():
+    """A training step of the hybrid Conformer under bf16 autocast on the
+    card: every training application of its dropouts that draws runs fused,
+    none plain (``train.profiler.dropout_counts``): the embedding's and the
+    decoder's position dropouts, two FFN activations and four residuals an
+    encoder block, one FFN activation and three residuals a decoder block."""
+    from mindaudio_torch.models.asr_model import ASRModel
+    from mindaudio_torch.train import profiler
+
+    model = ASRModel(30, input_dim=20, d_model=32, head_num=2, ffn_dim=64,
+                     num_encoder_layers=2, num_decoder_layers=2, kernel_size=5, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    model.train().set_dropout_generator(torch.Generator(device="cuda").manual_seed(1))
+    batch = {k: v.cuda() for k, v in _asr_batch().items()}
+    profiler.reset_dropout_counts()
+    with torch.autocast("cuda", torch.bfloat16):
+        loss, _ = model(batch)
+    loss.backward()
+    assert profiler.dropout_counts() == {"fused": 1 + 2 * 6 + 1 + 2 * 4, "plain": 0}
