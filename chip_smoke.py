@@ -83,7 +83,16 @@ Phases, each of which fails the run (non-zero exit) when it does not hold:
    chain on the same bytes at ``conformer-train``'s largest step (Swish and
    ReLU at 38,807 x 2048 bf16, the residual ``x + 0.5 * dropout(y)`` at
    38,807 x 256, x float32 and y bf16), forward and gradient within one
-   rounding of float64, timed in turns beside the byte bound; then train the
+   rounding of float64, timed in turns beside the byte bound; hold the
+   dropless MoE's grouped GEMM (``ops/grouped_gemm``: the six products of one
+   expert FFN at ``conformer-moe-train``'s largest step, 77,614 rows in 8
+   groups, balanced and skewed) against its per-group ``torch.matmul`` twin
+   and time it in turns beside its bound and ``torch._grouped_mm``; train the
+   U2++ MoE Conformer of ``conformer-moe-train`` (every encoder FFN 8 experts,
+   top 2, dropless) on the train bench's batch, counting each MoE FFN's 4
+   grouped-product and 2 weight-gradient launches a step and its dropout's
+   fused applications, and profile one step for the kernels' device time a
+   launch beside their bound; then train the
    flagship Conformer at full width and depth as the train bench
    builds the step: B=32, the 1027-frame bucket holding 10 s of seeded noise,
    20 labels, dither, SpecAugment, dropout, bf16 autocast, ``ctc_impl="kernel"``,
@@ -398,6 +407,17 @@ PAR_RECIPE_UTTS, PAR_RECIPE_STEPS = (64, 16, 8), 2
 # activation and three residuals a decoder block
 DROPOUT_ROWS, DROPOUT_THRESH = 257 * 151, 26
 DROPOUT_APPLICATIONS = 2 + ENC_LAYERS * 6 + DEC_LAYERS * 4
+# the dropless MoE of conformer-moe-train (ops/grouped_gemm): 8 experts, top 2,
+# so the largest step's 38,807 frames make 77,614 (token, slot) rows; the
+# groups are the counts of a uniform draw of experts (about 9.7k rows each),
+# and a skewed split (half the rows on one expert, one expert empty). Its
+# train step makes every encoder FFN (macaron and final) a mixture, each
+# launching 4 grouped products (2 forward, 2 input gradients) and 2 weight
+# gradients a step; their dropout runs in the products' epilogues, so 24 of
+# the 98 fused dropout applications launch no fused dropout kernel
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_FFNS, MOE_STEPS = 2 * ENC_LAYERS, 4
+MOE_DROPOUT_LAUNCHES = DROPOUT_APPLICATIONS - MOE_FFNS
 # streaming: conformer.yaml's decode.chunk_size and decode.streaming_cache_size
 STREAM_CHUNK, STREAM_CAP = 16, 128
 # int8 layers per pass at d_model 256: an encoder block has 11 (two FFNs,
@@ -992,25 +1012,27 @@ def train_batch(batch_size, seed, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def new_model(ctc_impl, device, seed=0):
-    """The flagship Conformer at full width and depth, seeded random weights."""
+def new_model(ctc_impl, device, seed=0, **moe):
+    """The flagship Conformer at full width and depth, seeded random weights;
+    ``moe``: ``ASRModel``'s ``moe_*`` options."""
     from mindaudio_torch.models.asr_model import ASRModel
 
     gen = torch.Generator(device=device).manual_seed(seed)
     return ASRModel(VOCAB, input_dim=N_MELS, d_model=D_MODEL, head_num=HEADS, ffn_dim=FFN,
                     num_encoder_layers=ENC_LAYERS, num_decoder_layers=DEC_LAYERS,
                     kernel_size=CONV_KERNEL, ctc_weight=0.3, ctc_impl=ctc_impl,
-                    device=device).reset_parameters(gen)
+                    device=device, **moe).reset_parameters(gen)
 
 
-def make_trainer():
-    """The train bench's step on the card: ``(model, optimizer, step, batch)``."""
+def make_trainer(**moe):
+    """The train bench's step on the card: ``(model, optimizer, step, batch)``;
+    ``moe`` as :func:`new_model`'s."""
     from mindaudio_torch.ops.specaugment import spec_augment
     from mindaudio_torch.ops.spectral import kaldi_fbank
     from mindaudio_torch.train.optim import AdamW
     from mindaudio_torch.train.state import make_train_step
 
-    model = new_model("kernel", "cuda").train()
+    model = new_model("kernel", "cuda", **moe).train()
     gen = torch.Generator(device="cuda").manual_seed(1)
     model.set_dropout_generator(gen)
     optimizer = AdamW(model.named_parameters(), 1e-3, weight_decay=1e-2,
@@ -1109,6 +1131,23 @@ def dropout_judge(fused, chain, exact):
             "to_chain": float((((f - c).abs() - (c - e).abs()) / one).max())}
 
 
+def back_to_back_ms(fn, iters=50):
+    """ms per call of ``fn`` between two CUDA events around ``iters`` calls
+    issued back to back, after three warm-up calls: the device's time where
+    it exceeds the host's per-call cost (for calls that cannot be captured
+    in a graph, such as a plain loop that reads lengths on the host)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def check_fused_dropout():
     """The fused dropout's two kernels against PyTorch's plain chain
     (``FastDropout`` on the same bytes) at conformer-train's largest step:
@@ -1123,20 +1162,8 @@ def check_fused_dropout():
     from mindaudio_torch.models import layers as tl
     from mindaudio_torch.ops import fused_dropout as fd
 
-    def ms(fn, iters=50):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / iters
-
     def turns(plain, fused):
-        times = [ms(f) for f in (plain, fused, fused, plain)]
+        times = [back_to_back_ms(f) for f in (plain, fused, fused, plain)]
         return (times[1] + times[2]) / 2, (times[0] + times[3]) / 2, times
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -1209,6 +1236,221 @@ def check_fused_dropout():
         del bits, kept, y, cot, out, dy, exact, exact_dy, chain, chain_dy
     torch.cuda.empty_cache()
     return results
+
+
+def check_grouped_gemm():
+    """The grouped GEMM of the dropless MoE (``ops/grouped_gemm``) at
+    conformer-moe-train's largest step: the six products of one MoE FFN
+    (forward: 256 -> 2048 with bias, Swish and dropout in the epilogue, 2048
+    -> 256 with bias; backward: each one's input gradient, the first with
+    the dropout's and Swish's gradient in its epilogue, and weight
+    gradients with the bias gradients) over 77,614 rows in 8 groups,
+    balanced and skewed. Each against its plain twin (the per-group
+    ``torch.matmul`` loop of ``grouped_gemm_plain``) within two bf16
+    roundings; device ms beside the bound (the larger of 2 M D H FLOPs at
+    the bf16 peak and the operands read and the result written once in
+    bf16), the twin's ms and, for the plain products, ``torch._grouped_mm``'s
+    (the library column; the port never calls it)."""
+    from mindaudio_torch.ops import fused_dropout as fd
+    from mindaudio_torch.ops import grouped_gemm as gg
+
+    rows, d, h, e = MOE_TOP_K * DROPOUT_ROWS, D_MODEL, FFN, MOE_EXPERTS
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    thresh, scale = DROPOUT_THRESH, fd.scale_of(DROPOUT_THRESH)
+    x = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    w1 = (torch.randn(e, d, h, device="cuda", generator=gen) / d ** 0.5).bfloat16()
+    w2 = (torch.randn(e, h, d, device="cuda", generator=gen) / h ** 0.5).bfloat16()
+    b1 = 0.1 * torch.randn(e, h, device="cuda", generator=gen)
+    b2 = 0.1 * torch.randn(e, d, device="cuda", generator=gen)
+    cot = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    src = torch.randperm(rows, device="cuda", generator=gen)
+    bits = torch.randint(0, 256, (rows, h), device="cuda", generator=gen, dtype=torch.uint8)
+    drop = dict(src=src, bits=bits, thresh=thresh, scale=scale)
+    uniform = torch.randint(0, e, (rows,), device="cuda", generator=gen).bincount(minlength=e)
+    skewed = torch.tensor([rows // 2] + [rows // 2 // (e - 2)] * (e - 2) + [0])
+    skewed[1] += rows - int(skewed.sum())
+    results = {}
+
+    def bound_ms(k, n):
+        flops = 2.0 * rows * k * n
+        nbytes = 2.0 * (rows * k + rows * n + e * k * n)
+        return 1e3 * max(flops / H100_BF16_FLOP_PER_S, nbytes / H100_BYTES_PER_S), flops
+
+    def judge(name, got, want):
+        peak = float(want.float().abs().max()) or 1.0
+        err = float((got.float() - want.float()).abs().max())
+        limit = 2 * float(bf16_ulp(peak)) + 1e-3 * peak if got.dtype == torch.bfloat16 else (
+            1e-3 * peak)
+        if not err <= limit:
+            raise AssertionError(f"grouped gemm {name}: kernel and twin differ by {err} "
+                                 f"(limit {limit})")
+        return err / limit
+
+    for split, sizes in (("uniform", uniform), ("skewed", skewed)):
+        offsets = torch.cat([sizes.new_zeros(1), sizes.cumsum(0)]).cuda()
+        z, hid = gg.grouped_gemm(x, w1, offsets, bias=b1, epilogue="swish_dropout", **drop)
+        dz = gg.grouped_gemm(cot, w2, offsets, trans_b=True, epilogue="dswish_dropout", z=z,
+                             **drop)
+        ends = offsets[1:].to(torch.int32)
+        w1_lib = w1.transpose(1, 2).contiguous().transpose(1, 2)
+        w2_lib = w2.transpose(1, 2).contiguous().transpose(1, 2)
+        products = {
+            "fwd_256x2048_swish_dropout": (
+                lambda: gg.grouped_gemm(x, w1, offsets, bias=b1, epilogue="swish_dropout",
+                                        **drop),
+                lambda: gg.grouped_gemm_plain(x, w1, offsets, bias=b1, epilogue="swish_dropout",
+                                              **drop),
+                lambda: torch._grouped_mm(x, w1_lib, offs=ends), d, h),
+            "fwd_2048x256_bias": (
+                lambda: gg.grouped_gemm(hid, w2, offsets, bias=b2),
+                lambda: gg.grouped_gemm_plain(hid, w2, offsets, bias=b2),
+                lambda: torch._grouped_mm(hid, w2_lib, offs=ends), h, d),
+            "dgrad_256x2048_dswish_dropout": (
+                lambda: gg.grouped_gemm(cot, w2, offsets, trans_b=True,
+                                        epilogue="dswish_dropout", z=z, **drop),
+                lambda: gg.grouped_gemm_plain(cot, w2, offsets, trans_b=True,
+                                              epilogue="dswish_dropout", z=z, **drop),
+                None, d, h),
+            "dgrad_2048x256": (
+                lambda: gg.grouped_gemm(dz, w1, offsets, trans_b=True),
+                lambda: gg.grouped_gemm_plain(dz, w1, offsets, trans_b=True),
+                lambda: torch._grouped_mm(dz, w1.transpose(1, 2), offs=ends), h, d),
+            "wgrad_2048x256_bias": (
+                lambda: gg.grouped_gemm_wgrad(hid, cot, offsets, bias_grad=True),
+                lambda: gg.grouped_gemm_wgrad_plain(hid, cot, offsets, bias_grad=True),
+                lambda: torch._grouped_mm(hid.t(), cot, offs=ends), h, d),
+            "wgrad_256x2048_bias": (
+                lambda: gg.grouped_gemm_wgrad(x, dz, offsets, bias_grad=True),
+                lambda: gg.grouped_gemm_wgrad_plain(x, dz, offsets, bias_grad=True),
+                lambda: torch._grouped_mm(x.t(), dz, offs=ends), d, h),
+        }
+        for name, (kernel, plain, library, k, n) in products.items():
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            worst = max(judge(name, a, b) for a, b in zip(got, want) if a is not None)
+            times = [back_to_back_ms(f, 20) for f in (plain, kernel, kernel, plain)]
+            lib_ms, lib_note = None, None
+            if library is not None:
+                try:
+                    library()
+                    lib_ms = back_to_back_ms(library, 20)
+                except Exception as exc:  # the library's layouts are narrower than ours
+                    lib_note = f"{type(exc).__name__}: {str(exc)[:120]}"
+            bound, flops = bound_ms(k, n)
+            ms = (times[1] + times[2]) / 2
+            r = {"split": split, "product": name, "rows": rows, "groups": sizes.tolist(),
+                 "ms": ms, "plain_ms": (times[0] + times[3]) / 2, "turns_ms": times,
+                 "library_ms": lib_ms, "library_note": lib_note, "bound_ms": bound,
+                 "bound_share": bound / ms, "tflops": flops / ms / 1e9, "err_share": worst}
+            results[f"{split}/{name}"] = r
+            log(f"grouped gemm {split} {name}: {ms:.4f} ms (plain loop {r['plain_ms']:.4f}, "
+                f"torch._grouped_mm {lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
+                f"{bound:.4f}, {100 * bound / ms:.1f}% of it, {r['tflops']:.0f} TFLOP/s); "
+                f"error / limit {worst:.3f}" + (f"; library: {lib_note}" if lib_note else ""))
+    torch.cuda.empty_cache()
+    return results
+
+
+def moe_train_phase(grouped):
+    """Phase 7's dropless MoE step: the U2++ MoE Conformer of
+    conformer-moe-train (every encoder FFN 8 experts, top 2, no capacity, the
+    macaron FFN too, no Switch loss) at the flagship's widths on the train
+    bench's batch (B = 32 x 10 s in the 1027-frame bucket), bf16 autocast,
+    trained by the shared step. Asserts each MoE FFN's 4 grouped-product and
+    2 weight-gradient launches a step, no dropped assignment, the dropout's
+    98 fused applications a step (none plain; 74 through the fused dropout
+    kernels each way, the MoE's 24 in the products' epilogues) and a falling
+    loss; then profiles one step for the two kernels' device time a launch
+    (the weight gradient's with its chunks' sum), beside the bound of their products at the step's rows (as
+    ``check_grouped_gemm``'s) and the plain loop's time at the cell's
+    largest step (``grouped``, that check's results). Returns the kernels
+    lines' entries of the two kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mindaudio_torch.ops import fused_dropout as fd
+    from mindaudio_torch.ops import grouped_gemm as gg
+    from mindaudio_torch.train import profiler
+
+    model, optimizer, step, batch = make_trainer(
+        moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K, moe_capacity_factor=None,
+        moe_macaron=True)
+    losses = [step(batch)["loss"].item()]  # the first step builds the kernels
+    torch.cuda.synchronize()
+    gg.grouped_gemm.launches = gg.grouped_gemm_wgrad.launches = 0
+    fd.fused_dropout_fwd.launches = fd.fused_dropout_bwd.launches = 0
+    profiler.reset_dropout_counts()
+    profiler.reset_moe_counts()
+    t0 = time.perf_counter()
+    losses += [m["loss"] for m in [step(batch) for _ in range(MOE_STEPS)]]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / MOE_STEPS
+    losses = [float(v) for v in losses]
+    launches = {"grouped_gemm": gg.grouped_gemm.launches,
+                "grouped_gemm_wgrad": gg.grouped_gemm_wgrad.launches}
+    dropout_launches = (fd.fused_dropout_fwd.launches, fd.fused_dropout_bwd.launches)
+    applications = profiler.dropout_counts()
+    counts = profiler.moe_counts()
+    rows = sum(counts["assigned"]) / max(counts["applications"], 1)
+    log(f"moe train: B={TRAIN_BATCH} x 10 s, {MOE_FFNS} dropless MoE FFNs ({MOE_EXPERTS} "
+        f"experts, top {MOE_TOP_K}), bf16 autocast: {step_ms:.2f} ms a step over {MOE_STEPS} "
+        f"steps; loss {' '.join(f'{v:.2f}' for v in losses)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"moe train: launches {launches}, fused dropout kernels {dropout_launches}, "
+        f"applications {applications}, MoE applications {counts['applications']} "
+        f"({rows:.0f} rows each, {counts['dropped']} dropped) over {MOE_STEPS} steps")
+    want = {"grouped_gemm": 4 * MOE_FFNS * MOE_STEPS,
+            "grouped_gemm_wgrad": 2 * MOE_FFNS * MOE_STEPS}
+    if launches != want:
+        raise AssertionError(f"moe train: grouped GEMM launches {launches}, expected {want}")
+    if applications != {"fused": DROPOUT_APPLICATIONS * MOE_STEPS, "plain": 0} or (
+            dropout_launches != (MOE_DROPOUT_LAUNCHES * MOE_STEPS,) * 2):
+        raise AssertionError(f"moe train: dropout applications {applications}, fused kernel "
+                             f"launches {dropout_launches}")
+    if counts["applications"] != MOE_FFNS * MOE_STEPS or counts["dropped"] != 0:
+        raise AssertionError(f"moe train: MoE counts {counts}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe train: loss not finite or not falling: {losses}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    device_us = {name: [0.0, 0] for name in launches}
+    reduce_us = 0.0  # the weight gradient's second kernel, its chunks' sum
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        if "grouped_gemm_wgrad_reduce_kernel" in e.key:
+            reduce_us += us
+        for name in launches:
+            if f"{name}_kernel" in e.key:
+                device_us[name][0] += us
+                device_us[name][1] += e.count
+    entries = []
+    for name, per_app in (("grouped_gemm", 4), ("grouped_gemm_wgrad", 2)):
+        total_us, n = device_us[name]
+        total_us += reduce_us if name == "grouped_gemm_wgrad" else 0.0
+        if n != per_app * MOE_FFNS:
+            raise AssertionError(f"moe train: {n} traced launches of {name}, expected "
+                                 f"{per_app * MOE_FFNS}")
+        flops = 2.0 * rows * D_MODEL * FFN
+        nbytes = 2.0 * (rows * D_MODEL + rows * FFN + MOE_EXPERTS * D_MODEL * FFN)
+        bound = 1e3 * max(flops / H100_BF16_FLOP_PER_S, nbytes / H100_BYTES_PER_S)
+        mine = [r for r in grouped.values() if r["split"] == "uniform"
+                and r["product"].startswith("wgrad") == (name == "grouped_gemm_wgrad")]
+        entry = {"name": name, "route": "cuda", "source": "mindaudio_torch/ops/csrc/grouped_gemm.cu",
+                 "replaces": None, "launches": launches[name],
+                 "launches_per_step": launches[name] // MOE_STEPS,
+                 "ms": total_us / 1e3 / n, "bound_ms": bound, "rows": rows,
+                 "plain_ms": sum(r["plain_ms"] for r in mine) / len(mine),
+                 "plain_rows": mine[0]["rows"], "step_ms": step_ms}
+        log(f"moe train: {name} {entry['ms']:.4f} ms a launch in the step ({n} launches, "
+            f"{rows:.0f} rows), bound {bound:.4f} ms, {100 * bound / entry['ms']:.1f}% of it")
+        entries.append(entry)
+    del model, optimizer, step, batch
+    torch.cuda.empty_cache()
+    return entries
 
 
 def train_phase(ctc_dp, ctc_times):
@@ -3449,9 +3691,11 @@ def par_layout(ctx, label, shape, build, loss_fn, batch, key, stated):
 def par_asr_loss(model, batch):
     """The hybrid loss, plus 0.01 of the MoE blocks' mean aux loss (the
     recipe's ``moe_aux_weight``) where the model has them."""
-    loss, metrics = model(batch)
-    aux = metrics.get("moe_aux_losses")
-    return loss if aux is None else loss + 0.01 * aux.mean()
+    from mindaudio_torch.parallel.moe import moe_aux_losses
+
+    loss, _ = model(batch)
+    aux = moe_aux_losses(model)
+    return loss + 0.01 * aux.mean() if aux.numel() else loss
 
 
 def par_flagship(**kw):
@@ -4420,6 +4664,8 @@ def main():
     # 7./8. train at full width; the poisoned batch; one step against the CPU
     flagship = ctc_results["flagship"]
     dropout = check_fused_dropout()
+    grouped = check_grouped_gemm()
+    grouped_entries = moe_train_phase(grouped)
     ctc_launches, dropout_launches = train_phase(ctc_dp, flagship)
     card_against_cpu_step()
 
@@ -4602,7 +4848,8 @@ def main():
         "wavegrad_launches": wg_launches["fused_logmel"],
         "int8_remat_launches": i8_launches["fused_logmel"],
         "public_api_launches": public["launches"]["fused_logmel"],
-    }, dropout_entry("fwd", 0), dropout_entry("bwd", 1)]}))
+    }, dropout_entry("fwd", 0), dropout_entry("bwd", 1),
+        *[dict(e, card=card, shapes=grouped) for e in grouped_entries]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

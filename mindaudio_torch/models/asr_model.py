@@ -8,10 +8,11 @@ CTC head, combined as ``loss = w * loss_ctc + (1 - w) * loss_att`` in
 decoding calls. ``remat`` and ``int8_ffn`` are the JAX module's training
 knobs (``int8_ffn`` also runs the CTC projection W8A8); ``moe_*``,
 ``sp_mesh``/``sp_variant`` and ``pipeline_*`` its parallel ones
-(``models.conformer.ConformerEncoder``). With MoE blocks, ``forward``'s
-metrics carry ``moe_aux_losses``: the blocks' Switch losses, stacked, with
-their gradient (the JAX model sows them), which a trainer weights into its
-loss.
+(``models.conformer.ConformerEncoder``). With MoE blocks, a trainer reads
+the blocks' Switch losses of the last ``forward`` through
+``parallel.moe.moe_aux_losses(model)`` (stacked, with their gradient; the JAX
+model sows them) and weights them into its loss; they are computed only
+when read.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..loss.ctc_loss import ctc_loss
 from ..loss.label_smoothing_loss import IGNORE_ID, label_smoothing_loss
 from ..parallel.mesh import data_denominator
 from .conformer import ConformerEncoder, TransformerDecoder
-from ..parallel.moe import MoEFeedForward, moe_aux_losses
+from ..parallel.moe import MoEFeedForward
 from .layers import FastDropout, Int8Dense, column_head
 
 __all__ = ["ASRModel"]
@@ -57,7 +58,7 @@ class ASRModel(nn.Module):
                  cmvn_mean=None, cmvn_istd=None, remat=False, int8_ffn=False,
                  moe_experts=0, moe_top_k=2, moe_capacity_factor=1.25, moe_mesh=None,
                  sp_mesh=None, sp_variant="ring", pipeline_mesh=None, pipeline_microbatches=4,
-                 device="cuda"):
+                 moe_macaron=False, device="cuda"):
         super().__init__()
         self.vocab_size = vocab_size
         self.ctc_weight = ctc_weight
@@ -74,7 +75,7 @@ class ASRModel(nn.Module):
             moe_experts=moe_experts, moe_top_k=moe_top_k,
             moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh, sp_mesh=sp_mesh,
             sp_variant=sp_variant, pipeline_mesh=pipeline_mesh,
-            pipeline_microbatches=pipeline_microbatches,
+            pipeline_microbatches=pipeline_microbatches, moe_macaron=moe_macaron,
         )
         self.decoder = TransformerDecoder(
             vocab_size, d_model=d_model, head_num=head_num, ffn_dim=ffn_dim,
@@ -149,9 +150,6 @@ class ASRModel(nn.Module):
 
         loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
         metrics = {"loss_att": loss_att, "loss_ctc": loss_ctc, "acc_att": acc_att}
-        aux = moe_aux_losses(self.encoder)
-        if aux.numel():
-            metrics["moe_aux_losses"] = aux
         return loss, metrics
 
     def encode(self, feats, feat_lens, decoding_chunk_size=-1,

@@ -51,18 +51,33 @@ class ConformerEncoderLayer(nn.Module):
     Streaming: with ``att_cache`` (the ``(k, v)`` of the frames before this
     chunk) and ``cnn_cache`` (the conv module's left context) the layer
     returns ``(x, new_att_cache, new_cnn_cache)``. ``int8_ffn`` runs both
-    FFNs' forwards W8A8 (``layers.Int8Dense``)."""
+    FFNs' forwards W8A8 (``layers.Int8Dense``).
+
+    ``moe_experts > 0`` makes the final FFN a ``parallel.moe.MoEFeedForward``
+    (MoE-Conformer), and with ``moe_macaron`` the macaron FFN one too (U2++
+    MoE, every FFN of the block); ``moe_capacity_factor=None`` is the
+    dropless MoE."""
 
     def __init__(self, d_model, head_num, ffn_dim, dropout_rate=0.1,
                  attention_dropout_rate=0.0, kernel_size=15, causal_conv=False,
                  norm_type="layer_norm", int8_ffn=False, moe_experts=0, moe_top_k=2,
-                 moe_capacity_factor=1.25, moe_mesh=None, use_macaron=True):
+                 moe_capacity_factor=1.25, moe_mesh=None, use_macaron=True, moe_macaron=False):
         super().__init__()
+
+        def ffn(moe):
+            if moe:
+                return MoEFeedForward(d_model, moe_experts, ffn_dim, dropout_rate,
+                                      top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+                                      activation=Swish(), mesh=moe_mesh)
+            return PositionwiseFeedForward(d_model, ffn_dim, dropout_rate, activation=Swish(),
+                                           int8=int8_ffn)
+
         self.use_macaron = use_macaron
+        # which FFNs are MoE blocks (they take the padding mask)
+        self.moe_ff, self.moe_macaron = moe_experts > 0, moe_experts > 0 and moe_macaron
         if use_macaron:
             self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
-            self.feed_forward_macaron = PositionwiseFeedForward(
-                d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
+            self.feed_forward_macaron = ffn(self.moe_macaron)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = RelPositionMultiHeadedAttention(
             d_model, head_num, attention_dropout_rate)
@@ -70,20 +85,17 @@ class ConformerEncoderLayer(nn.Module):
         self.conv_module = ConvolutionModule(d_model, kernel_size, causal=causal_conv,
                                              norm_type=norm_type)
         self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
-        if moe_experts > 0:  # the final FFN becomes the MoE (MoE-Conformer)
-            self.feed_forward = MoEFeedForward(
-                d_model, moe_experts, ffn_dim, dropout_rate, top_k=moe_top_k,
-                capacity_factor=moe_capacity_factor, activation=Swish(), mesh=moe_mesh)
-        else:
-            self.feed_forward = PositionwiseFeedForward(
-                d_model, ffn_dim, dropout_rate, activation=Swish(), int8=int8_ffn)
+        self.feed_forward = ffn(self.moe_ff)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = FastDropout(dropout_rate)
 
     def forward(self, x, mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None):
         streaming = att_cache is not None
         if self.use_macaron:
-            x = self.dropout.drop_add(x, self.feed_forward_macaron(self.norm_ff_macaron(x)), 0.5)
+            y = self.norm_ff_macaron(x)
+            y = (self.feed_forward_macaron(y, mask_pad) if self.moe_macaron
+                 else self.feed_forward_macaron(y))
+            x = self.dropout.drop_add(x, y, 0.5)
         y = self.norm_mha(x)
         y = self.self_attn(y, y, y, mask=mask, pos_emb=pos_emb, kv_cache=att_cache)
         if streaming:
@@ -94,8 +106,7 @@ class ConformerEncoderLayer(nn.Module):
             y, new_cnn_cache = y
         x = self.dropout.drop_add(x, y)
         y = self.norm_ff(x)
-        y = (self.feed_forward(y, mask_pad) if isinstance(self.feed_forward, MoEFeedForward)
-             else self.feed_forward(y))
+        y = self.feed_forward(y, mask_pad) if self.moe_ff else self.feed_forward(y)
         x = self.dropout.drop_add(x, y, 0.5 if self.use_macaron else 1.0)
         out = self.norm_final(x)
         if streaming:
@@ -117,13 +128,15 @@ class ConformerEncoder(nn.Module):
 
     ``moe_experts > 0`` makes every block's final FFN an
     ``parallel.moe.MoEFeedForward`` (its experts split over ``moe_mesh``'s
-    ``model`` group when given). ``sp_mesh``: the blocks run on this rank's
-    frames of the ``seq`` group, self-attention through ring or Ulysses
-    attention (``sp_variant``), the conv module's halo from the other ranks'
-    frames; full-context attention only, and the subsampled length must be a
-    multiple of the group size (both raise otherwise). ``pipeline_mesh``: the
-    blocks run as a GPipe pipeline over its ``pipe`` group with
-    ``pipeline_microbatches`` microbatches, the masks cut alongside.
+    ``model`` group when given), ``moe_macaron`` the macaron FFN too;
+    ``moe_capacity_factor=None`` makes them dropless. ``sp_mesh``: the
+    blocks run on this rank's frames of the ``seq`` group, self-attention
+    through ring or Ulysses attention (``sp_variant``), the conv module's
+    halo from the other ranks' frames; full-context attention only, and the
+    subsampled length must be a multiple of the group size (both raise
+    otherwise). ``pipeline_mesh``: the blocks run as a GPipe pipeline over
+    its ``pipe`` group with ``pipeline_microbatches`` microbatches, the
+    masks cut alongside.
     """
 
     def __init__(self, input_dim=80, d_model=256, head_num=4, ffn_dim=2048,
@@ -133,7 +146,7 @@ class ConformerEncoder(nn.Module):
                  use_dynamic_left_chunk=False, remat=False, int8_ffn=False,
                  norm_type="layer_norm", moe_experts=0, moe_top_k=2,
                  moe_capacity_factor=1.25, moe_mesh=None, sp_mesh=None, sp_variant="ring",
-                 pipeline_mesh=None, pipeline_microbatches=4):
+                 pipeline_mesh=None, pipeline_microbatches=4, moe_macaron=False):
         super().__init__()
         if pipeline_mesh is not None and moe_experts > 0:
             raise ValueError("the pipeline runs dense blocks; it does not take MoE blocks")
@@ -152,7 +165,8 @@ class ConformerEncoder(nn.Module):
                                   attention_dropout_rate, kernel_size, causal_conv,
                                   norm_type=norm_type, int8_ffn=int8_ffn,
                                   moe_experts=moe_experts, moe_top_k=moe_top_k,
-                                  moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh)
+                                  moe_capacity_factor=moe_capacity_factor, moe_mesh=moe_mesh,
+                                  moe_macaron=moe_macaron)
             for _ in range(num_layers)
         )
         self.sp_group = None if sp_mesh is None else sp_mesh.group("seq")

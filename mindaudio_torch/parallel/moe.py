@@ -23,6 +23,25 @@ back: a slot's position never changes its output, only whether it is kept,
 so the result is the same without the ``S * E * C`` tensor (about 0.6 GB in
 float32 at the flagship's 32 x 10 s batch).
 
+With ``capacity_factor=None`` the layer is dropless (U2++ MoE, arXiv:
+2404.16407, WeNet's ``MoEFFNLayer``): every routed assignment is computed
+and none is dropped. The router is the same float32 ``x @ gate`` (run with
+autocast off), the top-k taken by a stable descending sort (the first index
+on ties), the gates the softmax over the k chosen logits; padding is routed
+nowhere and gets zero. The (token, slot) assignments are sorted by expert
+on the device, each expert's rows found by a search of the sorted ids, and
+``ops.grouped_gemm.expert_ffn`` runs every expert's FFN in one grouped-GEMM
+launch a product (two forward, four backward; CUDA C++), its bias, Swish and
+dropout in the products' epilogues; the gates
+combine the results. Nothing is read back to the host and no loop runs over
+the experts, so the launches of an application do not depend on ``E``. The
+dropout bytes are drawn once an application at ``(B, T, k, H)``, the
+batch's rows first and in token, slot order, and read in expert order
+through the sort's permutation. The spans ``moe.route``, ``moe.dispatch``,
+``moe.experts`` and ``moe.combine`` (``train.profiler.annotate``) cover its
+phases; :data:`counters` counts applications, assignments per expert and
+dropped assignments (``train.profiler.moe_counts``).
+
 Experts are split over ``expert_axis`` (``model``): a rank holds ``E / n``
 of them (``w1``, ``b1``, ``w2``, ``b2`` cut along the expert dimension).
 The tokens are replicated over that axis, as in the JAX layout where the
@@ -36,6 +55,9 @@ blocks' losses explicitly.
 
 from __future__ import annotations
 
+import collections
+import time
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -44,7 +66,54 @@ from .collectives import all_gather_tensor, all_reduce, copy_to, reduce_from
 from .mesh import active_mesh, data_denominator
 from .shardings import set_shard
 
-__all__ = ["MoEFeedForward", "moe_capacity", "moe_aux_losses"]
+__all__ = ["MoEFeedForward", "moe_capacity", "moe_aux_losses", "counters", "records"]
+
+# every application since the last reset (train.profiler.moe_counts): their
+# number, the assignments per expert and the dropped ones, summed on the
+# device; and each application's assignments per expert with its wall-clock
+# time, kept while a profiler session records (train.profiler.moe_timeline)
+counters = {"applications": 0, "assigned": None, "dropped": None}
+records = collections.deque(maxlen=1 << 16)
+_autograd_profiler = torch.autograd.profiler
+
+
+def _count(assigned, dropped=None):
+    """Add one application's assignments per expert (int64, on the device)
+    and, where assignments were dropped, their number."""
+    counters["applications"] += 1
+    total = counters["assigned"]
+    if total is None or total.shape != assigned.shape or total.device != assigned.device:
+        counters["assigned"] = assigned.clone()  # a model's MoE layers share E
+    else:
+        total.add_(assigned)
+    if dropped is not None:
+        if counters["dropped"] is None or counters["dropped"].device != dropped.device:
+            counters["dropped"] = torch.zeros((), dtype=torch.int64, device=dropped.device)
+        counters["dropped"].add_(dropped)
+    if _autograd_profiler._is_profiler_enabled:
+        records.append((time.time_ns(), assigned))
+
+
+class _Rows(torch.autograd.Function):
+    """``t.to(dtype)[index]``, whose gradient takes the rows back by
+    ``back`` (``index``'s inverse, one row of the result to each place) and
+    sums every ``fold`` of them in float32: a token sent to ``fold``
+    experts gathers their gradients."""
+
+    @staticmethod
+    def forward(ctx, t, index, back, fold, dtype):
+        ctx.save_for_backward(back)
+        ctx.fold, ctx.dtype = fold, t.dtype
+        return t.to(dtype).index_select(0, index)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (back,) = ctx.saved_tensors
+        g = g.index_select(0, back)
+        if ctx.fold > 1:
+            g = g.view(-1, ctx.fold, g.shape[-1]).sum(1, dtype=torch.float32)
+        return g.to(ctx.dtype), None, None, None, None
 
 
 def moe_capacity(n_tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
@@ -61,14 +130,20 @@ class MoEFeedForward(nn.Module):
     H)``, ``b1 (E, H)``, ``w2 (E, H, D)``, ``b2 (E, D)``) so
     ``convert.convert_params`` carries them across. With a ``mesh`` whose
     ``expert_axis`` has ``n > 1`` ranks, this rank stores only its ``E / n``
-    experts (``E`` must be a multiple of ``n``).
+    experts (``E`` must be a multiple of ``n``). ``capacity_factor=None``
+    makes it dropless (its activation is then Swish, as U2++ MoE's).
+    ``aux_loss`` is the Switch load-balance loss of the last forward,
+    computed when first read (``None`` before a forward): a trainer that
+    weighs it by 0 never reads it and launches nothing for it.
     """
 
     def __init__(self, d_model, num_experts, hidden_units, dropout_rate=0.1, top_k=2,
                  capacity_factor=1.25, activation=F.relu, mesh=None, expert_axis="model"):
         super().__init__()
-        from ..models.layers import FastDropout
+        from ..models.layers import FastDropout, Swish
 
+        if capacity_factor is None and not isinstance(activation, Swish):
+            raise ValueError("the dropless MoE runs Swish experts (its kernel's epilogue)")
         if top_k > num_experts:
             raise ValueError(f"top_k={top_k} exceeds num_experts={num_experts}: each token "
                              "can select an expert at most once")
@@ -82,7 +157,8 @@ class MoEFeedForward(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(e, hidden_units, d_model))
         self.b2 = nn.Parameter(torch.zeros(e, d_model))
         self.dropout = FastDropout(dropout_rate)
-        self.aux_loss = None
+        # the last forward's routing, kept for aux_loss: (dropless, arguments)
+        self._routing, self._aux = None, None
         if mesh is not None:
             self.shard(mesh, expert_axis)
 
@@ -116,8 +192,25 @@ class MoEFeedForward(nn.Module):
         self.b2.zero_()
         return self
 
+    @property
+    def aux_loss(self):
+        """The Switch loss of the last forward (``None`` before one),
+        computed at the first read after it."""
+        if self._aux is None and self._routing is not None:
+            dropless, args = self._routing
+            self._aux = (self._dropless_switch_loss(*args) if dropless
+                         else self._switch_loss(*args))
+        return self._aux
+
+    @property
+    def dropless(self):
+        """Whether every routed assignment is computed (no capacity)."""
+        return self.capacity_factor is None
+
     def forward(self, x, mask_pad=None):
         """``x (B, T, D)``; ``mask_pad (B, T)`` True at valid positions."""
+        if self.dropless:
+            return self._dropless(x, mask_pad)
         b, t, d = x.shape
         e_all, k = self.num_experts, self.top_k
         mesh = active_mesh()
@@ -171,13 +264,75 @@ class MoEFeedForward(nn.Module):
         out = reduce_from(out, self.group)
         weights = torch.stack([(keep * gk).sum(-1) for keep in keeps])  # (K, S)
         y = (weights[..., None].to(out.dtype) * out).sum(0)
+        assigned = level.sum(0)
+        _count(assigned.long(), (assigned.sum() - sum(keep.sum() for keep in keeps)).long())
+        self._routing, self._aux = (False, (probs, sel[0], valid, data)), None
+        return y.reshape(b, t, d).to(x.dtype)
 
-        # Switch load-balance loss over the global batch's valid tokens; this
-        # rank's share, so that the data group's mean is the global value
+    def _switch_loss(self, probs, top1, valid, data):
+        """The Switch load-balance loss over the global batch's valid tokens
+        (``top1``: each token's first choice, one-hot, zero at padding); this
+        rank's share, so that the data group's mean is the global value."""
         n_valid = torch.clamp_min(all_reduce(valid.sum(), data), 1.0)
-        f_e = all_reduce(sel[0].sum(0), data) / n_valid
+        f_e = all_reduce(top1.sum(0), data) / n_valid
         p_e = (probs * valid).sum(0) / data_denominator(valid.sum(), 1.0)
-        self.aux_loss = e_all * torch.sum(f_e * p_e)
+        return self.num_experts * torch.sum(f_e * p_e)
+
+    def _dropless_switch_loss(self, logits, first, mask_pad, data):
+        """:meth:`_switch_loss` from the dropless path's float32 router
+        logits (S, E), each token's first choice (S, 1) (E at padding) and the
+        padding mask (or ``None``)."""
+        s, e = logits.shape
+        valid = (torch.ones((s, 1), dtype=torch.float32, device=logits.device)
+                 if mask_pad is None else mask_pad.reshape(s, 1).float())
+        top1 = (first == torch.arange(e, device=logits.device)).float()
+        return self._switch_loss(torch.softmax(logits, -1), top1, valid, data)
+
+    def _dropless(self, x, mask_pad):
+        from ..ops import fused_dropout
+        from ..ops.grouped_gemm import expert_ffn
+        from ..train.profiler import annotate
+
+        b, t, d = x.shape
+        e, k, s = self.num_experts, self.top_k, b * t
+        dev = x.device
+        dtype = (torch.get_autocast_dtype(dev.type) if torch.is_autocast_enabled(dev.type)
+                 else x.dtype)
+        xs = x.reshape(s, d)
+        with annotate("moe.route"):
+            with torch.autocast(dev.type, enabled=False):
+                logits = xs.float() @ self.gate.float()  # (S, E)
+            top, idx = torch.sort(logits, stable=True, dim=-1, descending=True)
+            gates = torch.softmax(top[:, :k], -1)  # (S, k)
+            idx = idx[:, :k]
+            if mask_pad is not None:  # padding goes to group E, which no expert runs
+                idx = torch.where(mask_pad.reshape(s, 1), idx, e)
+        with annotate("moe.dispatch"):
+            # the (token, slot) rows sorted by expert; group g is rows
+            # offsets[g]:offsets[g + 1]; back[r] is where slot r went
+            keys, order = torch.sort(idx.reshape(-1), stable=True)
+            offsets = torch.searchsorted(keys, torch.arange(e + 2, device=dev))
+            back = torch.empty_like(order).scatter_(
+                0, order, torch.arange(order.numel(), device=dev))
+            xe = _Rows.apply(copy_to(xs, self.group), order // k, back, k, dtype)
+            bits = self.dropout.bits((b, t, k, self.w1.shape[-1]), dev)
+            if bits is not None:
+                fused_dropout.applications["fused" if x.is_cuda else "plain"] += 1
+                bits = bits.view(s * k, -1)
+        with annotate("moe.experts"):
+            thresh = self.dropout._thresh()
+            ye = expert_ffn(xe, self.w1, self.b1, self.w2, self.b2,
+                            offsets[self.first:self.first + self.local + 1],
+                            None if bits is None else order, bits, thresh,
+                            fused_dropout.scale_of(thresh) if bits is not None else 1.0)
+            ye = reduce_from(ye, self.group)
+        with annotate("moe.combine"):
+            y = _Rows.apply(ye, back, order, 1, ye.dtype).view(s, k, d)
+            y = (y * gates[..., None]).sum(1)
+        _count(offsets[1:e + 1] - offsets[:e])
+        mesh = active_mesh()
+        data = None if mesh is None else mesh.group("data")
+        self._routing, self._aux = (True, (logits, idx[:, :1], mask_pad, data)), None
         return y.reshape(b, t, d).to(x.dtype)
 
 

@@ -46,6 +46,7 @@ from ...ops.spectral import kaldi_fbank
 from ...scheduler.schedules import asr_warmup_lr
 from ...parallel.collectives import all_reduce
 from ...parallel.mesh import active_mesh, barrier, init_mesh, make_mesh
+from ...parallel.moe import moe_aux_losses
 from ...parallel.shardings import (
     apply_tensor_parallel,
     full_state,
@@ -106,6 +107,7 @@ def build_model(cfg, vocab_size, device, training=True, mesh=None):
     layout trains the same model. ``training=False`` (decoding) keeps the MoE
     blocks and drops the pipeline, as the JAX recipe's ``build_model``."""
     moe_experts = int(cfg.model.get("moe_experts", 0))
+    capacity = cfg.model.get("moe_capacity_factor", 1.25)  # None: dropless
     pipelined = training and mesh is not None and mesh.size("pipe") > 1
     cmvn_mean = cmvn_istd = None
     if os.path.exists(cfg.data.cmvn_file):
@@ -129,7 +131,8 @@ def build_model(cfg, vocab_size, device, training=True, mesh=None):
         int8_ffn=bool(cfg.model.get("int8_ffn", False)),
         moe_experts=moe_experts,
         moe_top_k=int(cfg.model.get("moe_top_k", 2)),
-        moe_capacity_factor=float(cfg.model.get("moe_capacity_factor", 1.25)),
+        moe_capacity_factor=None if capacity is None else float(capacity),
+        moe_macaron=bool(cfg.model.get("moe_macaron", False)),
         pipeline_mesh=mesh if pipelined else None,
         pipeline_microbatches=int(cfg.train.get("pipeline_microbatches", 4)),
         cmvn_mean=cmvn_mean,
@@ -182,13 +185,15 @@ def make_optimizer(cfg, model, mesh=None):
 def hybrid_loss(cfg, chunks=None):
     """``(model, batch) -> (loss, metrics)``: the model's hybrid loss, plus
     ``moe_aux_weight`` times the mean of the MoE blocks' load-balance losses
-    (reported as ``moe_aux``), as the JAX recipe adds the sown ones."""
+    (reported as ``moe_aux``), as the JAX recipe adds the sown ones; at
+    weight 0, or without MoE blocks, nothing is computed or looked for."""
     weight = float(cfg.model.get("moe_aux_weight", 0.01))
+    weighed = weight > 0 and int(cfg.model.get("moe_experts", 0)) > 0
 
     def loss_fn(model, batch):
         loss, metrics = model(batch, chunk_generator=chunks)
-        aux = metrics.pop("moe_aux_losses", None)
-        if aux is not None:
+        aux = moe_aux_losses(model) if weighed else None
+        if aux is not None and aux.numel():
             metrics["moe_aux"] = aux.mean()
             loss = loss + weight * metrics["moe_aux"]
         return loss, metrics

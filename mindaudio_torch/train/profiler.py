@@ -1,7 +1,8 @@
 """Profiling and per-step timing (port of ``mindaudio_tpu.train.profiler``):
 ``torch.profiler`` traces for TensorBoard or Perfetto, the program's named
 spans on their timeline, the dropout's count of fused and plain
-applications, and a host-side step timer with an ETA."""
+applications, the MoE layer's counts of its routing, and a host-side step
+timer with an ETA."""
 
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ import time
 import torch
 
 from ..ops import fused_dropout
+from ..parallel import moe
 
 __all__ = ["trace", "annotate", "timeline", "dropout_counts", "reset_dropout_counts",
-           "StepTimer"]
+           "moe_counts", "reset_moe_counts", "moe_timeline", "StepTimer"]
 
 # the spans recorded while a profiler session records: (name, thread id,
 # start_ns, end_ns) on the wall clock, the newest 2**17 kept
@@ -97,6 +99,36 @@ def reset_dropout_counts():
     """Set both counts of :func:`dropout_counts` to 0."""
     for key in fused_dropout.applications:
         fused_dropout.applications[key] = 0
+
+
+def moe_counts():
+    """``{"applications": n, "assigned": [...], "dropped": d}``: the
+    applications of ``parallel.moe.MoEFeedForward`` since the last
+    :func:`reset_moe_counts`, the router's assignments to each expert summed
+    over them (a token counts once for each of its top-k experts; padding
+    none) and the assignments the capacity dropped (always 0 on the dropless
+    path). The sums are kept on the device, added to without a
+    synchronisation inside the step; reading them here waits for the
+    device."""
+    total, dropped = moe.counters["assigned"], moe.counters["dropped"]
+    return {"applications": moe.counters["applications"],
+            "assigned": [] if total is None else total.tolist(),
+            "dropped": 0 if dropped is None else int(dropped)}
+
+
+def reset_moe_counts():
+    """Zero :func:`moe_counts` and forget :func:`moe_timeline`'s records."""
+    moe.counters.update(applications=0, assigned=None, dropped=None)
+    moe.records.clear()
+
+
+def moe_timeline(t0_ns=None, t1_ns=None):
+    """``(time_ns, [assignments per expert])`` of every MoE application
+    made while a ``torch.profiler`` session recorded, at a wall-clock time
+    within ``[t0_ns, t1_ns]`` (``None``: that side open), in order; the
+    counts are read from the device here."""
+    return [(t, counts.tolist()) for t, counts in list(moe.records)
+            if (t0_ns is None or t >= t0_ns) and (t1_ns is None or t <= t1_ns)]
 
 
 class StepTimer:

@@ -569,3 +569,175 @@ def test_fused_dropout_every_conformer_application_is_fused():
         loss, _ = model(batch)
     loss.backward()
     assert profiler.dropout_counts() == {"fused": 1 + 2 * 6 + 1 + 2 * 4, "plain": 0}
+
+
+# -- the grouped GEMM (ops/grouped_gemm.py) and the dropless MoE --------------
+
+def _bounds(sizes):
+    return torch.tensor([0, *np.cumsum(sizes).tolist()], device="cuda")
+
+
+def _exact_close(got, exact, what, ulps=1.0):
+    """``got`` within ``ulps`` bf16 ulps of ``exact``'s largest value plus
+    float32's error (1e-5 of it): one rounding of a float32 sum."""
+    if not exact.numel():
+        return
+    peak = float(exact.abs().max()) or 1.0
+    err = float((got.double() - exact).abs().max())
+    assert err <= ulps * float(bf16_ulp(peak)) + 1e-5 * peak, (what, err, peak)
+
+
+@pytest.mark.parametrize("sizes", [(0, 300, 0, 77, 1, 0, 129, 64), (0, 0, 1000, 0),
+                                   (5, 0, 0, 3), (257, 131, 1, 0, 0, 0, 0, 0)])
+@pytest.mark.parametrize("k,n", [(256, 2048), (2048, 256), (40, 24)])
+def test_grouped_gemm_matches_per_group_matmul(sizes, k, n):
+    """Ragged groups (empty ones, one holding every row, sizes that are not
+    tile multiples, rows past the last group): the product with its bias,
+    the input gradient's form (``trans_b``) and the weight and bias
+    gradients, each against per-group ``torch.matmul`` and float64. bf16
+    outputs lie within one rounding of float64; the weight gradient, a
+    float32 sum over a group's rows, within 1e-5 of its largest value."""
+    from mindaudio_torch.ops import grouped_gemm as gg
+
+    g = torch.Generator(device="cuda").manual_seed(sum(sizes) + k)
+    offsets = _bounds(sizes)
+    m = int(offsets[-1]) + 7
+    a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    b = (torch.randn(len(sizes), k, n, device="cuda", generator=g) / k ** 0.5).bfloat16()
+    bt = b.transpose(1, 2).contiguous()
+    bias = torch.randn(len(sizes), n, device="cuda", generator=g)
+    dy = torch.randn(m, n, device="cuda", generator=g).bfloat16()
+    before = gg.grouped_gemm.launches, gg.grouped_gemm_wgrad.launches
+    out = gg.grouped_gemm(a, b, offsets, bias=bias)
+    out_t = gg.grouped_gemm(a, bt, offsets, trans_b=True)
+    dw, db = gg.grouped_gemm_wgrad(a, dy, offsets, bias_grad=True)
+    torch.cuda.synchronize()
+    assert (gg.grouped_gemm.launches, gg.grouped_gemm_wgrad.launches) == (before[0] + 2,
+                                                                           before[1] + 1)
+    bounds = offsets.tolist()
+    assert not out[bounds[-1]:].any() and not out_t[bounds[-1]:].any()
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        exact = a[lo:hi].double() @ b[i].double()
+        _exact_close(out[lo:hi], exact + bias[i].double(), ("bias", i))
+        _exact_close(out_t[lo:hi], exact, ("trans_b", i))
+        twin = torch.matmul(a[lo:hi], b[i])
+        _exact_close(out_t[lo:hi], twin.double(), ("matmul", i), ulps=2.0)
+        exact_w = a[lo:hi].double().t() @ dy[lo:hi].double()
+        peak = float(exact_w.abs().max()) if hi > lo else 1.0
+        assert float((dw[i].double() - exact_w).abs().max()) <= 1e-5 * peak, ("wgrad", i)
+        assert torch.allclose(db[i].double(), dy[lo:hi].double().sum(0), atol=1e-3)
+
+
+@pytest.mark.parametrize("thresh", [26, 0])
+def test_grouped_gemm_dropout_epilogues(thresh):
+    """The expert FFN's epilogues: ``z = a @ b + bias`` and
+    ``dropout(swish(z))`` from the stored ``z``, the bytes read through the
+    rows' sources; and ``(g @ b.T) * keep * scale * swish'(z)``: each within
+    one rounding of float64 computed from the kernel's own bf16 inputs."""
+    from mindaudio_torch.ops import fused_dropout as fd
+    from mindaudio_torch.ops import grouped_gemm as gg
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    sizes, k, n = (300, 0, 1, 513), 256, 2048
+    offsets = _bounds(sizes)
+    m = int(offsets[-1])
+    a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    b = (torch.randn(len(sizes), k, n, device="cuda", generator=g) / k ** 0.5).bfloat16()
+    b2 = (torch.randn(len(sizes), n, k, device="cuda", generator=g) / n ** 0.5).bfloat16()
+    bias = torch.randn(len(sizes), n, device="cuda", generator=g)
+    src = torch.randperm(m, device="cuda", generator=g)
+    bits = torch.randint(0, 256, (m, n), device="cuda", generator=g, dtype=torch.uint8)
+    drop = dict(src=src, bits=bits, thresh=thresh, scale=fd.scale_of(thresh)) if thresh else {}
+    z, h = gg.grouped_gemm(a, b, offsets, bias=bias, epilogue="swish_dropout", **drop)
+    cot = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    dz = gg.grouped_gemm(cot, b2, offsets, trans_b=True, epilogue="dswish_dropout", z=z, **drop)
+    keep = (bits[src] >= thresh).double() * (256.0 / (256 - thresh)) if thresh else 1.0
+    zf = z.double()
+    sig = torch.sigmoid(zf)
+    for i, (lo, hi) in enumerate(zip(offsets[:-1].tolist(), offsets[1:].tolist())):
+        _exact_close(z[lo:hi], a[lo:hi].double() @ b[i].double() + bias[i].double(), ("z", i))
+    _exact_close(h, zf * sig * keep, "h")
+    exact_dz = torch.zeros(m, n, dtype=torch.float64, device="cuda")
+    for i, (lo, hi) in enumerate(zip(offsets[:-1].tolist(), offsets[1:].tolist())):
+        exact_dz[lo:hi] = cot[lo:hi].double() @ b2[i].double().t()
+    exact_dz = exact_dz * keep * sig * (1 + zf * (1 - sig))
+    _exact_close(dz, exact_dz, "dz")
+
+
+def _moe_layer(experts, d=64, h=128, rate=0.1, seed=0):
+    from mindaudio_torch.parallel.moe import MoEFeedForward
+
+    layer = MoEFeedForward(d, experts, h, rate, top_k=2, capacity_factor=None,
+                           activation=tl.Swish()).cuda()
+    layer.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
+    layer.dropout.generator = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return layer.train()
+
+
+def _moe_step(layer, x, mask):
+    with torch.autocast("cuda", torch.bfloat16):
+        y = layer(x, mask)
+    y.float().square().mean().backward()
+
+
+def test_dropless_moe_never_synchronises():
+    """The dropless layer's forward and backward under bf16 autocast with
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    device (its first call, which builds the kernels, runs before)."""
+    layer = _moe_layer(8)
+    x = torch.randn(4, 50, 64, device="cuda", requires_grad=True)
+    mask = torch.arange(50, device="cuda")[None] < torch.tensor([50, 31, 7, 44],
+                                                               device="cuda")[:, None]
+    _moe_step(layer, x, mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _moe_step(layer, x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_dropless_moe_launches_do_not_grow_with_experts():
+    """The device operations of one forward and backward are as many at 4
+    experts as at 8."""
+    counts = []
+    for experts in (4, 8):
+        layer = _moe_layer(experts)
+        x = torch.randn(4, 50, 64, device="cuda", requires_grad=True)
+        mask = torch.ones(4, 50, dtype=torch.bool, device="cuda")
+        _moe_step(layer, x, mask)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _moe_step(layer, x, mask)
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        counts.append(sum(e.device_type() == cuda
+                          for e in prof.profiler.kineto_results.events()))
+    assert counts[0] == counts[1] > 0, counts
+
+
+def test_dropless_moe_matches_the_reference_in_float32():
+    """The whole layer on the card in float32 (full float32 products)
+    against the benchmark's reference MoE on the same weights and dropout
+    bytes: output and every gradient within 1e-4 of their largest value."""
+    from portbench.reference import conformer as ref
+    from portbench.reference.conformer_moe import MoE
+
+    layer = _moe_layer(8)
+    plain = MoE(64, 128, 8, 2).cuda()
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            p.copy_(dict(layer.named_parameters())[name])
+    x = torch.randn(3, 40, 64, device="cuda")
+    mask = torch.arange(40, device="cuda")[None] < torch.tensor([40, 17, 1],
+                                                               device="cuda")[:, None]
+    xp, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yp = layer(xp, mask)
+    drop = ref.Dropout(0.1, torch.Generator(device="cuda").manual_seed(1), 3)
+    yr = plain(xr, mask, drop)
+    cot = torch.randn(yp.shape, device="cuda")
+    got = torch.autograd.grad(yp, [xp, *layer.parameters()], cot)
+    want = torch.autograd.grad(yr, [xr, *plain.parameters()], cot)
+    for a, b in zip((yp, *got), (yr, *want)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), (a - b).abs().max()

@@ -424,3 +424,29 @@ def test_make_train_step_passes_the_chunk_generator():
                            loss_fn=lambda m, b: m(b, chunk_generator=chunks))
     assert torch.isfinite(step(batch)["loss"])
     assert not torch.equal(chunks.get_state(), before)  # the chunk size was drawn from it
+
+
+def test_dropless_moe_trains_through_main(corpus, tmp_path):
+    """``conformer_moe.yaml`` (U2++ MoE: every encoder FFN 8 experts, top 2,
+    dropless, no Switch loss) trains two steps and a save through
+    ``train.main()``; every routed frame is computed."""
+    from mindaudio_torch.parallel.moe import MoEFeedForward
+    from mindaudio_torch.train import profiler
+
+    moe_yaml = os.path.join(REPO, "mindaudio_torch/recipes/conformer/conformer_moe.yaml")
+    extra = ["--device", "cpu", "--train.ckpt_dir", str(tmp_path), "--train.save_every_steps",
+             "2", "--train.log_every_steps", "1", "--config", moe_yaml]
+    if not os.path.exists(f"{corpus}/global_cmvn.json"):
+        compute_cmvn_stats.main(_args(corpus, 2, *extra))
+    cfg, _ = ttrain.parse_args(_args(corpus, 2, *extra))
+    model = ttrain.build_model(cfg, 30, "cpu")
+    ffns = [m for m in model.modules() if isinstance(m, MoEFeedForward)]
+    assert len(ffns) == 2 * cfg.model.num_encoder_layers
+    assert all(m.dropless and m.num_experts == 8 for m in ffns)
+    profiler.reset_moe_counts()
+    out = ttrain.main(_args(corpus, 2, *extra))
+    assert (out["steps"], out["final_step"]) == (2, 2)
+    assert np.isfinite(out["losses"]).all() and np.isfinite(list(out["dev_losses"].values())).all()
+    counts = profiler.moe_counts()
+    assert counts["applications"] >= 2 * len(ffns) and counts["dropped"] == 0
+    profiler.reset_moe_counts()

@@ -157,6 +157,28 @@ def moe_case(state, x, mask, kwargs, shape):
             "x_grad": grads[-1], "coords": mesh.coords}
 
 
+def moe_dropless_case(state, x, mask, kwargs, shape):
+    """The dropless MoE layer over a mesh of ``shape`` (a ``model`` group:
+    every rank holds all the rows and its own experts): forward and backward
+    of ``mean(y^2)``; returns the output, the input gradient and the
+    parameters' gradients (whole tensors)."""
+    from mindaudio_torch.parallel.moe import MoEFeedForward
+    from mindaudio_torch.parallel.shardings import full_tensor, sync_grads
+
+    mesh = make_mesh(**shape)
+    layer = MoEFeedForward(**kwargs)
+    layer.load_state_dict(state)
+    layer.shard(mesh)
+    xr = x.clone().requires_grad_(True)
+    y = layer(xr, mask)
+    params = list(layer.parameters())
+    grads = torch.autograd.grad(y.square().mean(), params + [xr])
+    grads = sync_grads(params, list(grads[:-1]), mesh) + [grads[-1]]
+    names = [n for n, _ in layer.named_parameters()]
+    return {"y": y.detach(), "x_grad": grads[-1],
+            "grads": {n: full_tensor(p, g) for n, p, g in zip(names, params, grads)}}
+
+
 def sp_attention_case(q, k, v, valid, variant, scale, weight):
     """``sequence_parallel_attention`` over the ``seq`` group on whole
     tensors: the output and the gradients of ``sum(out * weight)``."""
